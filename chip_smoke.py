@@ -1,0 +1,749 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (eagle_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile PATH.json]
+
+Phases (any failure exits non-zero, nothing is caught):
+
+1. build: the CUDA kernel (nvcc, sm_90a) and the host prescale (g++), in
+   parallel, from the sources in this checkout;
+2. kernel: every kernel of the main path against its plain PyTorch
+   version on the same CUDA tensors at the main path's shapes -- the LK
+   flow kernel at K = 57 points on the 544x960 canvas: status bit-equal,
+   positions within 1e-2 px -- plus timings: the kernel's device time (from
+   the profiler's trace), its wrapper's and the plain version's (CUDA
+   events);
+3. reference: the slice on the card against the port's plain CPU path on
+   a 12-frame clip with oracle models that know the clip's geometry, and
+   the tracked keypoints against the true landmark pixels;
+4. slice: ``CoordinateModel(device="cuda").get_coordinates`` on 48 frames
+   of 1280x720 at 24 fps with seeded full-width YOLOv8-l (960) and
+   HRNet-W48 (540x960) in bfloat16, the YOLO class bias tuned to a
+   broadcast-like detection count; the launch counters are zeroed just
+   before and read just after, and every kernel must have launched; the
+   output must hold one dict per frame with the four keys; the bf16
+   models must agree with their float32 selves on one batch;
+5. with ``--profile``: one more run of the slice (24 frames) under
+   ``torch.profiler``, summarised per stage (device busy and idle share,
+   host time blocked in synchronising calls) into the given JSON file.
+
+The frames are made here from a fixed seed with numpy/scipy: a green
+pitch texture with white lines, panned 1-2 px per frame, whose line
+intersections are known tracking points.
+
+Output: the card's name and power limit, per-stage milliseconds and
+frames per second, one ``{"kernels": [...]}`` JSON line, and as the last
+line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+N_FRAMES = 48
+FPS = 24
+FRAME_HW = (720, 1280)
+SEED = 0
+#: LK status must match exactly; positions within the bar the JAX package
+#: sets between its two flow engines (tests/test_pallas_flow.py)
+FLOW_ATOL = 1e-2
+#: bf16 vs float32 model outputs on the same batch of 8 frames, largest
+#: absolute difference.  HRNet heatmaps are sigmoid probabilities; YOLO
+#: boxes are pixels on a 960-wide canvas and scores sigmoid probabilities.
+#: Each limit is 2.5-5 times the reading of sound runs of this script on an
+#: H100 (PERF.md): heatmaps 4.3e-4, boxes 0.048 px, scores 0.093.  The
+#: scores' error is large because the seeded YOLO's features fade through
+#: the depth, bf16 keeps 8 bits of them, and the class head is scaled up
+#: to a spread of CLS_LOGIT_STD logits (see spread_weights).
+BF16_HEATMAP_ATOL = 2e-3
+BF16_SCORE_ATOL = 0.25
+BF16_BOX_ATOL = 0.25
+#: the slice on the card against its plain CPU path on a short clip:
+#: keypoints, classes and track ids equal; boundaries (metres) within
+#: 1 cm; boxes (pixels) and pitch positions (metres), both integers, within
+#: 1.  Reported keypoints of landmarks in view within 6 px of their true
+#: pixels: positions are truncated to integers at the oracle and after
+#: each of the up to 3 flow steps between cadence frames (every 4th frame),
+#: so each axis may lag by up to 4 px (5.7 px diagonally).
+REF_FRAMES = 12
+REF_BOUNDARY_ATOL = 1e-2
+REF_TRUTH_PX = 6.0
+#: frames of the profiled run (--profile)
+PROFILE_FRAMES = 24
+#: detections a frame kept at the detector's keep threshold that the
+#: seeded YOLO's class bias is tuned to: a broadcast frame shows about 20
+#: outfield players, the goalkeepers, 2-3 referees and the ball
+TARGET_DETECTIONS = 25
+#: spread (standard deviation over anchors) of the seeded YOLO's class
+#: logits.  A trained detector puts objects and background several logits
+#: apart, so few boxes score between NMS's floor (0.15) and the keep
+#: threshold (0.35); at a spread of 1 such boxes fill the 128 slots
+CLS_LOGIT_STD = 4.0
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non
+#: tensor-core) FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# synthetic broadcast-like frames (numpy/scipy only)
+# ---------------------------------------------------------------------------
+
+
+def make_frames(n: int, hw=FRAME_HW, seed: int = SEED, pan: float = 1.5):
+    """(frames (n, H, W, 3) uint8 BGR, points (n, P, 2) float32 x, y of the
+    white-line intersections in each frame)."""
+    from scipy.ndimage import gaussian_filter
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    offs = np.round(pan * np.arange(n)).astype(int)
+    W = w + int(offs[-1]) + 1
+    tex = gaussian_filter(rng.normal(size=(h, W)), 2.5)
+    tex = 9.0 * tex / tex.std()
+    cols = np.arange(W)[None, :]
+    rows = np.arange(h)[:, None]
+    stripes = np.where((cols // 96) % 2 == 0, 0.0, -9.0)
+    green = np.array([60.0, 140.0, 70.0])
+    img = green[None, None, :] + (tex + stripes)[..., None]
+    xs = np.arange(150, W - 100, 260, dtype=float)
+    ys = np.array([0.2, 0.45, 0.72, 0.9]) * h
+    white = np.zeros((h, W), bool)
+    for x in xs:
+        white |= np.abs(cols - x) <= 2
+    for y in ys:
+        white |= np.abs(rows - y) <= 2
+    cx, cy = xs[len(xs) // 2] + 130.0, ys[1]
+    rad = np.hypot(cols - cx, rows - cy)
+    white |= np.abs(rad - 90.0) <= 2
+    img[white] = 235.0
+    world = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    frames = np.stack([world[:, o : o + w] for o in offs])
+    gx, gy = np.meshgrid(xs, ys)
+    pts_w = np.stack([gx.ravel(), gy.ravel()], -1)
+    pts = np.stack([pts_w - [o, 0] for o in offs]).astype(np.float32)
+    return np.ascontiguousarray(frames), pts
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from eagle_tpu_torch import native
+    from eagle_tpu_torch.ops import optical_flow
+
+    t0 = time.perf_counter()
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # reported below; the phase fails
+            errors.append(e)
+
+    threads = [
+        threading.Thread(target=run, args=(native._load_prescale,)),
+        threading.Thread(target=run, args=(lambda: optical_flow.build(verbose=True),)),
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+
+def _taps(start: np.ndarray, taps: int, size: int) -> np.ndarray:
+    """(K,) float32 patch starts on one axis -> (K, size) bool: the grid
+    lines that a bilinear sample of ``taps`` consecutive positions from
+    ``start`` (clamped to the ROI) gives a nonzero weight."""
+    pos = np.clip(start[:, None] + np.arange(taps, dtype=np.float32), 0.0, size - 1.0)
+    lo = np.floor(pos).astype(np.int64)
+    rows = np.broadcast_to(np.arange(len(start))[:, None], lo.shape)
+    mask = np.zeros((len(start), size), bool)
+    mask[rows, lo] = True
+    frac = pos > lo
+    mask[rows[frac], np.minimum(lo + 1, size - 1)[frac]] = True
+    return mask
+
+
+def lk_flow_work(record, k: int, sizes, window: int = 15) -> tuple[int, int, int]:
+    """(bytes, operations, live Newton steps) that the flow engine needs
+    for the input whose ``record`` :func:`engine_plain` filled.  Bytes:
+    every pyramid tap with a nonzero bilinear weight, read once -- per
+    point and level the taps under the (window+2)^2 previous patch and the
+    union of the window^2 current patches that its live Newton steps
+    sample -- plus the points and origins read and the outputs written
+    once.  Operations, counted from the algorithm: per point and level the
+    previous patch (~20 ops a tap), Scharr gradients (~24 a tap) and the
+    structure tensor (6 a tap), plus ~25 ops a tap for every live Newton
+    step."""
+    ext = window + 2
+    touched = {}
+    live_steps = 0
+    for lvl, kind, tl, live in record:
+        s = sizes[lvl]
+        tl = tl.cpu().numpy().astype(np.float32)
+        taps = ext if kind == "prev" else window
+        foot = _taps(tl[:, 1], taps, s)[:, :, None] & _taps(tl[:, 0], taps, s)[:, None, :]
+        if live is not None:
+            live = live.cpu().numpy()
+            live_steps += int(live.sum())
+            foot &= live[:, None, None]
+        key = (lvl, kind)
+        touched[key] = touched[key] | foot if key in touched else foot
+    n_taps = sum(int(m.sum()) for m in touched.values())
+    nbytes = n_taps * 4 + 2 * k * 2 * 4 + k * 2 * 4 + k * 4
+    setup = ext * ext * 20 + window * window * (24 + 6)
+    ops = k * len(sizes) * setup + live_steps * window * window * 25
+    return nbytes, ops, live_steps
+
+
+def phase_kernel(frames, pts):
+    """LK flow kernel vs its plain version at K = 57 on the canvas."""
+    import torch
+
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.ops.preprocess import compute_work_geometry, host_letterbox_i420, i420_to_bgr
+
+    dev = torch.device("cuda")
+    geom = compute_work_geometry(FRAME_HW, 960)
+    canvas = i420_to_bgr(torch.from_numpy(host_letterbox_i420(frames[[0, 6]], geom)).to(dev))
+    prev, curr = canvas[0], canvas[1]
+    ch, cw = geom.canvas_h, geom.canvas_w
+    rng = np.random.default_rng(SEED + 1)
+    inter = pts[0] * geom.gain + [geom.pad_x, geom.pad_y]
+    inter = inter[(inter[:, 0] > 0) & (inter[:, 0] < cw - 1)]
+    borders = np.array(
+        [[0.5, 0.5], [cw - 1.5, ch - 1.5], [3.0, 270.0], [cw - 4.0, 9.0], [480.25, ch - 2.0],
+         [96.0, 96.0], [cw - 97.0, ch - 97.0], [190.7, 4.2]],
+        np.float32,
+    )
+    rand = rng.uniform([0, 0], [cw - 1, ch - 1], (57 - len(inter) - len(borders), 2))
+    p = torch.from_numpy(np.concatenate([inter, borders, rand]).astype(np.float32)).to(dev)
+    k = p.shape[0]
+    assert k == 57, k
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    valid[5] = False
+
+    launches0 = of.launches
+    g_k, s_k = of.lk_flow(prev, curr, p, valid)
+    torch.cuda.synchronize()
+    if of.launches != launches0 + 1:
+        fail("lk_flow on CUDA tensors did not launch the kernel")
+    g_p, s_p = of.lk_flow_plain(prev, curr, p, valid)
+    torch.cuda.synchronize()
+    s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
+    g_k, g_p = g_k.cpu().numpy(), g_p.cpu().numpy()
+    if not np.array_equal(s_k, s_p):
+        fail(f"lk_flow status differs from the plain version at {np.flatnonzero(s_k != s_p).tolist()}")
+    err = float(np.abs(g_k - g_p)[s_p].max()) if s_p.any() else 0.0
+    print(f"kernel lk_flow: K={k} ok={int(s_p.sum())} max |kernel - plain| = {err:.3e} px")
+    if not err <= FLOW_ATOL:
+        fail(f"lk_flow positions differ from the plain version by {err} > {FLOW_ATOL}")
+
+    # engine timings on the same pyramid (the ROI/pyramid build is shared)
+    h, w = prev.shape[:2]
+    side = of.roi_side(h, w)
+    origin = of.roi_origins(p, h, w, side, 2)
+    pyr = of.roi_pyramids(prev, curr, origin, side, 2)
+    record: list = []
+    of.engine_plain(pyr, origin, p, side, 2, record=record)
+    nbytes, ops, live_steps = lk_flow_work(record, k, of.level_sizes(side, 2))
+    launches0 = of.launches
+    engine = lambda: of.lk_flow_engine_cuda(pyr, origin, p, side, 2)  # noqa: E731
+    ms = kernel_device_ms(engine, "lk_flow_kernel")
+    wrapper_ms = cuda_ms(engine)
+    plain_ms = cuda_ms(lambda: of.engine_plain(pyr, origin, p, side, 2), reps=5)
+    of.launches = launches0  # comparison launches are not main-path launches
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    print(
+        f"kernel lk_flow: {ms:.4f} ms device time a launch (wrapper {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms); needs {nbytes} B of pyramid taps and I/O and {ops} ops "
+        f"({live_steps} live Newton steps; the packed pyramid holds {pyr.numel() * 4} B) -> "
+        f"bound {max(t_bytes, t_ops) * 1e3:.4f} us, kernel {ms / max(t_bytes, t_ops):.1f}x over it"
+    )
+    return {
+        "name": "lk_flow",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/lk_flow.cu",
+        "replaces": "eagle_tpu/ops/pallas_flow2.py:272",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def oracle_models(frames, pts):
+    """``keypoint_fn`` / ``detector_fn`` that know the clip: the on-plane
+    pitch landmarks in view, placed by a fixed broadcast-like world ->
+    image homography of frame 0 (the near touchline spans x 20-85 m across
+    the width, the far one is narrower) and panned with the frames, and six
+    players standing still on the pitch.  Returns (keypoint_fn,
+    detector_fn, truth (n, 57, 2) pixels of the landmarks in view, NaN for
+    the others)."""
+    from eagle_tpu_torch import pitch
+
+    offs = pts[0, 0, 0] - pts[:, 0, 0]
+    world = pitch.WORLD_XY
+    proj = np.array([[17.7, 6.8, -314.0], [0.0, -9.18, 686.0], [0.0, 0.01, 1.0]]) @ np.concatenate(
+        [world, np.ones((57, 1))], -1
+    ).T
+    base = (proj[:2] / proj[2]).T
+    truth = base[None] - np.stack([offs, np.zeros_like(offs)], -1)[:, None]
+    h, w = frames.shape[1:3]
+    seen = (base[:, 0] >= 20) & (base[:, 0] < w - 40) & (base[:, 1] >= 20) & (base[:, 1] < h - 20)
+    seen &= pitch.ON_PLANE_MASK
+    truth[:, ~seen] = np.nan
+    index = {frames[i].tobytes(): i for i in range(len(frames))}
+    feet = np.array([[300, 200], [520, 420], [700, 300], [900, 600], [400, 650], [1100, 380]], float)
+
+    def keypoint_fn(batch):
+        idx = [index[f.tobytes()] for f in batch]
+        kp = np.zeros((len(idx), 57, 3), np.float32)
+        kp[..., :2] = np.nan_to_num(np.trunc(truth[idx]))
+        kp[..., 2] = 0.9
+        return kp, np.tile(seen, (len(idx), 1))
+
+    def detector_fn(batch):
+        idx = [index[f.tobytes()] for f in batch]
+        b = len(idx)
+        boxes = np.zeros((b, 128, 4), np.float32)
+        valid = np.zeros((b, 128), bool)
+        for r, i in enumerate(idx):
+            x = feet[:, 0] - offs[i]
+            boxes[r, : len(feet)] = np.stack([x - 15, feet[:, 1] - 70, x + 15, feet[:, 1]], -1)
+            valid[r, : len(feet)] = True
+        return boxes, np.where(valid, 0.9, 0.0).astype(np.float32), np.zeros((b, 128), np.int32), valid
+
+    return keypoint_fn, detector_fn, truth
+
+
+def coords_mismatch(got: dict, want: dict) -> str | None:
+    """The first difference between two get_coordinates dicts beyond the
+    REF_* tolerances, or None."""
+    if sorted(got) != sorted(want):
+        return "frame keys"
+    for i in want:
+        g, w = got[i], want[i]
+        if g["Keypoints"] != w["Keypoints"] or g["Time"] != w["Time"]:
+            return f"frame {i} keypoints"
+        for bg, bw in zip(g["Boundaries"], w["Boundaries"]):
+            if (bg is None) != (bw is None) or (
+                bw is not None and not np.allclose(bg, bw, atol=REF_BOUNDARY_ATOL, rtol=0)
+            ):
+                return f"frame {i} boundaries {g['Boundaries']} vs {w['Boundaries']}"
+        if {c: sorted(o) for c, o in g["Coordinates"].items()} != {
+            c: sorted(o) for c, o in w["Coordinates"].items()
+        }:
+            return f"frame {i} classes or track ids"
+        for cls, objs in w["Coordinates"].items():
+            for oid, ow in objs.items():
+                og = g["Coordinates"][cls][oid]
+                if not np.allclose(og["BBox"], ow["BBox"], atol=1, rtol=0):
+                    return f"frame {i} {cls} {oid} box"
+                tg, tw = og["Transformed_Coordinates"], ow["Transformed_Coordinates"]
+                if (tg is None) != (tw is None) or (tw is not None and not np.allclose(tg, tw, atol=1, rtol=0)):
+                    return f"frame {i} {cls} {oid} pitch position"
+    return None
+
+
+def phase_reference(frames, pts):
+    """The slice on the card against the port's plain CPU path on a small
+    clip (raw 1280x720 frames, the oracle models of :func:`oracle_models`):
+    the two dicts agree within the REF_* tolerances, and every reported
+    keypoint of a landmark in view lies within REF_TRUTH_PX of its true
+    pixel (points synthesized beyond the view are extrapolations)."""
+    from eagle_tpu_torch import pitch
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    clip = frames[:REF_FRAMES]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        kp_fn, det_fn, truth = oracle_models(clip, pts)
+        model = CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
+        res[dev] = model.get_coordinates(clip, FPS, num_keypoint_detection=6)
+    bad = coords_mismatch(res["cuda"], res["cpu"])
+    if bad:
+        fail(f"the slice on the card differs from its plain CPU path: {bad}")
+    errs = [
+        np.hypot(*(np.asarray(xy) - truth[i, pitch.NAME_TO_ID[name]]))
+        for i, fr in res["cuda"].items()
+        for name, xy in fr["Keypoints"].items()
+        if np.isfinite(truth[i, pitch.NAME_TO_ID[name]]).all()
+    ]
+    n_h = sum(fr["Boundaries"][0] is not None for fr in res["cuda"].values())
+    n_players = min(len(fr["Coordinates"].get("Player", {})) for fr in res["cuda"].values())
+    print(f"reference: {len(clip)} frames, card == plain CPU path; {len(errs)} keypoints in view, "
+          f"max {max(errs):.2f} px from the truth; {n_h} frames with boundaries; "
+          f">= {n_players} players tracked per frame")
+    if not (max(errs) <= REF_TRUTH_PX and n_h == len(clip) and n_players == 6):
+        fail("the slice on the small reference clip lost keypoints, the homography or the players")
+
+
+def phase_models_bf16(model, frames):
+    """bf16 HRNet / YOLO outputs vs float32 copies of the same modules on
+    one batch of canvas frames."""
+    import copy
+
+    import torch
+
+    dev = model.device
+    geom = model._geometry(FRAME_HW)
+    x = model.upload(frames[:8], geom)
+    with torch.no_grad():
+        img = x[:, geom.pad_y : geom.pad_y + geom.img_h, geom.pad_x : geom.pad_x + geom.img_w]
+        from eagle_tpu_torch.ops.preprocess import normalize_imagenet
+
+        pre = normalize_imagenet(img.flip(-1).float()).permute(0, 3, 1, 2).contiguous()
+        hr16 = model.keypoint_model
+        hr32 = copy.deepcopy(hr16)
+        hr32.use_bf16 = False
+        hm_err = float((hr16(pre) - hr32(pre)).abs().max())
+        imgs = (x.flip(-1).float() / 255.0).permute(0, 3, 1, 2).contiguous()
+        yo16 = model.detector_model
+        yo32 = copy.deepcopy(yo16)
+        yo32.use_bf16 = False
+        b16, s16 = yo16(imgs)
+        b32, s32 = yo32(imgs)
+        box_err = float((b16 - b32).abs().max())
+        score_err = float((s16 - s32).abs().max())
+    torch.cuda.synchronize(dev)
+    print(
+        f"bf16 vs float32: HRNet heatmaps {hm_err:.3e} (atol {BF16_HEATMAP_ATOL}), YOLO boxes "
+        f"{box_err:.3f} px (atol {BF16_BOX_ATOL}), scores {score_err:.3e} (atol {BF16_SCORE_ATOL})"
+    )
+    if not (hm_err <= BF16_HEATMAP_ATOL and box_err <= BF16_BOX_ATOL and score_err <= BF16_SCORE_ATOL):
+        fail("bf16 model outputs disagree with float32")
+
+
+def detections_per_frame(model, x) -> tuple[float, float]:
+    """Mean detections a frame of the built-in detector + NMS over the
+    device frames ``x``: (valid, i.e. at or above the low threshold, which
+    is what enters the tracker; at or above the keep threshold)."""
+    import torch
+
+    geom = model._geometry(FRAME_HW)
+    d = torch.cat([model.run_detector(x[i : i + 16], geom, FRAME_HW) for i in range(0, len(x), 16)])
+    valid = d[..., 6] > 0.5
+    kept = valid & (d[..., 4] >= model.detector_conf)
+    return float(valid.sum(1).float().mean()), float(kept.sum(1).float().mean())
+
+
+def spread_class_logits(net, x) -> None:
+    """Scale the class output conv of each YOLO head level so that every
+    class logit, without the bias, has standard deviation CLS_LOGIT_STD
+    over the anchors of one forward pass on ``x``."""
+    import torch
+    import torch.nn.functional as F
+
+    def rescale(conv, args):
+        y = F.conv2d(args[0].float(), conv.w.float(), padding=conv.padding)
+        conv.w.mul_(CLS_LOGIT_STD / y.std(dim=(0, 2, 3))[:, None, None, None])
+
+    hooks = [lvl.cls_out.register_forward_pre_hook(rescale) for lvl in net.head["levels"]]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def spread_weights(model, frames, seed: int = SEED) -> tuple[float, float]:
+    """Re-draw the seeded random weights so the slice is not degenerate:
+    with the reference init (HRNet conv std 0.001) every heatmap is flat,
+    all 57 argmaxes land on one pixel and dedup leaves one keypoint; the
+    YOLO activations fade through the depth and its class head (std 0.01)
+    gives every anchor the same score, so the count of detections jumps
+    from 0 to the 128 slots as the class bias moves -- the homography and
+    tracker would either never run or run saturated.  HRNet convs get std
+    0.5 / sqrt(fan_in) (spread heatmaps, no saturation).  YOLO's class
+    head is scaled to CLS_LOGIT_STD on 8 frames spread over the clip, and
+    its class bias (one value for every class and level) is bisected on
+    those frames until they keep TARGET_DETECTIONS a frame at the keep
+    threshold: a broadcast frame's load on NMS, the auction and the
+    tracker.  Returns (bias, kept detections a frame on those frames)."""
+    import torch
+
+    from eagle_tpu_torch.models.layers import init_normal_
+
+    gen = torch.Generator().manual_seed(seed)
+    init_normal_(model.keypoint_model, gen,
+                 lambda name, p: 0.5 / (p.shape[1] * p.shape[2] * p.shape[3]) ** 0.5)
+    x = model.upload(frames[:: max(1, len(frames) // 8)][:8], model._geometry(FRAME_HW))
+    spread_class_logits(model.detector_model, (x.flip(-1).float() / 255.0).permute(0, 3, 1, 2).contiguous())
+
+    def kept(bias: float) -> float:
+        with torch.no_grad():
+            for lvl in model.detector_model.head["levels"]:
+                lvl.cls_out.b.fill_(bias)
+        return detections_per_frame(model, x)[1]
+
+    lo, hi = -40.0, 8.0
+    for _ in range(16):
+        mid = 0.5 * (lo + hi)
+        if kept(mid) < TARGET_DETECTIONS:
+            lo = mid
+        else:
+            hi = mid
+    return hi, kept(hi)
+
+
+def phase_slice(frames):
+    import torch
+
+    from eagle_tpu_torch import DEFAULT_CONFIG
+    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
+
+    cfg = DEFAULT_CONFIG
+    assert cfg.detector.variant == "large_hd" and cfg.detector.image_size == 960
+    assert tuple(cfg.keypoint.input_hw) == (540, 960) and cfg.keypoint.use_bf16
+    t0 = time.perf_counter()
+    model = CoordinateModel(config=cfg, seed=SEED, device="cuda")
+    bias, kept = spread_weights(model, frames)
+    print(f"slice: models built in {time.perf_counter() - t0:.1f} s "
+          f"(YOLOv8-{model.detector_model.variant} @ {cfg.detector.image_size}, HRNet-W48 @ "
+          f"{cfg.keypoint.input_hw[0]}x{cfg.keypoint.input_hw[1]}, bf16); YOLO class bias "
+          f"{bias:.4f} keeps {kept:.2f} detections a frame on 8 frames of the clip (target "
+          f"{TARGET_DETECTIONS})")
+    phase_models_bf16(model, frames)
+
+    # warm-up on a short clip (cuDNN algorithm choice, allocator)
+    model.get_coordinates(frames[:16], FPS, num_keypoint_detection=3)
+    torch.cuda.synchronize()
+
+    timer = StageTimer(model.device, sync=True)
+    optical_flow.launches = 0
+    t0 = time.perf_counter()
+    res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = optical_flow.launches
+
+    if sorted(res) != list(range(len(frames))):
+        fail("get_coordinates did not return one entry per frame")
+    for i, fr in res.items():
+        if set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"}:
+            fail(f"frame {i} has keys {sorted(fr)}")
+        for name, (x, y) in fr["Keypoints"].items():
+            if not (np.isfinite(x) and np.isfinite(y)):
+                fail(f"frame {i} keypoint {name} is not finite")
+    if launches < len(frames) - 1:
+        fail(f"lk_flow kernel launched {launches} times for {len(frames)} frames")
+    n_kp = np.mean([len(fr["Keypoints"]) for fr in res.values()])
+    n_h = sum(fr["Boundaries"][0] is not None for fr in res.values())
+    n_obj = np.mean([sum(len(o) for o in fr["Coordinates"].values()) for fr in res.values()])
+    n_tracked = np.mean([len(fr["Coordinates"].get("Player", {})) + len(fr["Coordinates"].get("Goalkeeper", {}))
+                         for fr in res.values()])
+    n_valid, n_kept = detections_per_frame(model, model.upload(frames, model._geometry(FRAME_HW)))
+    stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
+    print(f"slice: {len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.2f} fps; "
+          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}")
+    print(f"slice traffic, means a frame: detections entering the tracker {n_valid:.2f} "
+          f"(kept at the keep threshold {n_kept:.2f}); objects reported {n_obj:.2f}, of which "
+          f"tracked players and goalkeepers {n_tracked:.2f}; keypoints {n_kp:.2f}; frames with "
+          f"boundaries {n_h}")
+    return launches, model
+
+
+def _union_ms(intervals) -> float:
+    """Length of the union of (start, end) microsecond intervals, in ms."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def trace_events(prof) -> list[dict]:
+    """The complete ("X") events of a finished ``torch.profiler`` run, read
+    back from its Chrome trace (written to and removed from the build
+    directory)."""
+    trace = os.path.join("build", "eagle_tpu_torch", "trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    os.remove(trace)
+    return events
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device time of the kernel whose name contains ``name`` over
+    ``reps`` calls of ``fn``, from the profiler's device trace (CUPTI):
+    the kernel alone, without its wrapper's host work or input packing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e["dur"] for e in trace_events(prof) if e.get("cat") == "kernel" and name in e["name"]]
+    if len(durs) != reps:
+        fail(f"the profiler saw {len(durs)} launches of {name}, expected {reps}")
+    return sum(durs) / reps / 1e3
+
+
+def phase_profile(model, frames, out_path: str) -> None:
+    """One more run of the slice under ``torch.profiler``: per stage, the
+    wall time, the device's busy time (the union of the kernels and copies
+    that ran inside the stage's ranges) and idle share, and the host's time
+    blocked in synchronising calls; the kernels that take the most device
+    time.  Writes ``out_path`` (JSON) and prints one summary line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+
+    timer = StageTimer(model.device, sync=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    ranges, device, blocking = {}, [], []
+    for e in events:
+        span = (e["ts"], e["ts"] + e["dur"])
+        if e.get("cat") == "user_annotation" and e["name"].startswith("stage:"):
+            ranges.setdefault(e["name"][len("stage:"):], []).append(span)
+        elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((span, e["name"]))
+        elif e.get("cat") == "cuda_runtime" and e["name"] in (
+            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy"
+        ):
+            blocking.append(span)
+
+    def inside(spans, rs):
+        return [(max(a, r0), min(b, r1)) for a, b in spans for r0, r1 in rs if a < r1 and b > r0]
+
+    stages = {}
+    for name, rs in ranges.items():
+        wall = sum(b - a for a, b in rs) / 1e3
+        busy = _union_ms(inside([sp for sp, _ in device], rs))
+        stages[name] = {
+            "wall_ms": wall,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "host_blocked_ms": _union_ms(inside(blocking, rs)),
+            "blocking_calls": len(inside(blocking, rs)),
+        }
+    by_kernel: dict = {}
+    for (a, b), name in device:
+        n, ms = by_kernel.get(name, (0, 0.0))
+        by_kernel[name] = (n + 1, ms + (b - a) / 1e3)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
+    summary = {
+        "frames": len(frames),
+        "card": card_line(),
+        "stages": stages,
+        "top_device_ops": [{"name": k[:120], "count": n, "ms": ms} for k, (n, ms) in top],
+    }
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(summary, f, indent=1)
+    print("profile: " + json.dumps({k: {m: round(v, 3) if isinstance(v, float) else v for m, v in st.items()}
+                                    for k, st in stages.items()}) + f" (details in {out_path})")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="JSON", default=None,
+                    help="also profile one run of the slice and write a per-stage summary here")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    try:
+        import eagle_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: eagle_tpu_torch not importable ({e}); run from the repository root",
+              file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    card = card_line()
+
+    t0 = time.perf_counter()
+    phase_build()
+    frames, pts = make_frames(N_FRAMES)
+    flow = phase_kernel(frames, pts)
+    phase_reference(frames, pts)
+    flow["launches"], model = phase_slice(frames)
+    if args.profile:
+        phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [flow]}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

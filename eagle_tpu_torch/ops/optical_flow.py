@@ -1,0 +1,393 @@
+"""Pyramidal Lucas-Kanade sparse optical flow (cv2 calcOpticalFlowPyrLK
+semantics: window 15, maxLevel 2, 10 iterations, eps 0.03).
+
+PyTorch counterpart of ``eagle_tpu/ops/optical_flow.py::lk_flow``, whose
+per-level engine the JAX package also runs as the Pallas kernel
+``eagle_tpu/ops/pallas_flow2.py::lk_flow_pallas2``.  Here the engine is
+the hand-written CUDA kernel ``csrc/lk_flow.cu``:
+
+- :func:`lk_flow` is the flow step.  It builds each point's 192-px gray
+  ROI pair and the ROI pyramids with plain tensor ops, straight into the
+  packed layout the kernel reads (:func:`roi_pyramids`), then runs the
+  per-point engine over all levels: the CUDA kernel for a CUDA tensor (one
+  launch per frame; it raises if the kernel does not build or launch), the
+  plain engine for a CPU tensor.
+- :func:`lk_flow_plain` is the same function with the plain engine on any
+  device, a transcription of the JAX ``lk_flow`` (bilinear sampling as
+  hat-weight products, the ROI clamp, the cv2 TERM_CRITERIA_EPS freeze).
+
+Numerical conventions follow OpenCV: cv2-rounded gray, 5-tap Gaussian
+pyrDown with reflect-101 borders, Scharr /32 derivatives on the sampled
+17x17 patch, bilinear subpixel sampling, the guess carried down the
+pyramid with x2 rescaling.  The pyramid values are exact in float32
+(multiples of 2^-16 below 256), so any summation order gives the same
+pyramid.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# cv2 BGR -> gray coefficients (their float32 values)
+_GRAY_W = tuple(float(np.float32(v)) for v in (0.114, 0.587, 0.299))
+
+#: per-point ROI side at full resolution; level-l ROI side = ROI_SIDE / 2**l
+ROI_SIDE = 192
+
+
+def bgr_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR (..., 3) -> float32 gray (...), rounded to integers.
+
+    The dot product rounds like the JAX package's float32 ``x @ w`` on the
+    CPU, a fused multiply-add chain ``fma(r, w2, fma(g, w1, b * w0))``:
+    each step is computed exactly in float64 (8-bit values times float32
+    weights) and rounded once to float32, so the gray is bit-equal on
+    every device."""
+    x = frames.to(torch.float64)
+    acc = (x[..., 0] * _GRAY_W[0]).to(torch.float32).to(torch.float64)
+    acc = (acc + x[..., 1] * _GRAY_W[1]).to(torch.float32).to(torch.float64)
+    acc = (acc + x[..., 2] * _GRAY_W[2]).to(torch.float32)
+    return torch.round(acc)
+
+
+def pyr_down(img: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """cv2.pyrDown of (K, H, W): 5-tap [1,4,6,4,1]/16 Gaussian with
+    reflect-101 borders, stride-2 decimation, output ((H+1)//2, (W+1)//2),
+    written into ``out`` when given."""
+
+    def one_axis(x, dim, dst=None):
+        n = x.shape[dim]
+        size = (n + 1) // 2
+        pad = [0, 0, 0, 0]
+        pad[2 * (x.dim() - 1 - dim) if dim != 0 else 0] = 2
+        pad[2 * (x.dim() - 1 - dim) + 1 if dim != 0 else 1] = 2
+        xp = F.pad(x, pad[: 2 * (x.dim() - 1)], mode="reflect")
+        taps = [xp.narrow(dim, t, 2 * size - 1)[(slice(None),) * dim + (slice(None, None, 2),)]
+                for t in range(5)]
+        acc = taps[0] + 4.0 * taps[1] + 6.0 * taps[2] + 4.0 * taps[3] + taps[4]
+        return torch.div(acc, 16.0, out=dst)
+
+    return one_axis(one_axis(img, 2), 1, out)
+
+
+def roi_origins(pts: torch.Tensor, h: int, w: int, side: int, levels: int) -> torch.Tensor:
+    """(K, 2) int64 ROI origins (x, y): centred on the point, clipped
+    inside the frame, aligned down to a multiple of 2**levels."""
+    factor = 2**levels
+
+    def align(v, limit):
+        a = torch.clamp(v - side // 2, 0, max(0, limit - side))
+        return (a // factor) * factor
+
+    fl = torch.floor(pts).to(torch.int64)
+    return torch.stack([align(fl[:, 0], w), align(fl[:, 1], h)], dim=-1)
+
+
+def level_sizes(side: int, levels: int) -> list[int]:
+    """ROI side of each pyramid level, finest first."""
+    sizes = [side]
+    for _ in range(levels):
+        sizes.append((sizes[-1] + 1) // 2)
+    return sizes
+
+
+def pyramid_levels(pyr: torch.Tensor, k: int, side: int, levels: int) -> list[torch.Tensor]:
+    """Views of a packed pyramid (:func:`roi_pyramids`): level l is the
+    (2, K, s_l, s_l) block [prev ROIs; curr ROIs] that follows the blocks
+    of the finer levels."""
+    views, off = [], 0
+    for s in level_sizes(side, levels):
+        n = 2 * k * s * s
+        views.append(pyr[off : off + n].view(2, k, s, s))
+        off += n
+    return views
+
+
+def roi_pyramids(
+    prev_bgr: torch.Tensor, curr_bgr: torch.Tensor, origin: torch.Tensor, side: int, levels: int
+) -> torch.Tensor:
+    """Gray ROI pair (K, side, side) at the shared origins and their
+    ``levels`` pyrDown levels, written straight into one flat float32
+    tensor in the layout the CUDA kernel reads (see
+    :func:`pyramid_levels`)."""
+    k = origin.shape[0]
+    gray = torch.stack([bgr_to_gray(prev_bgr), bgr_to_gray(curr_bgr)])  # (2, H, W)
+    h, w = gray.shape[1:]
+    sizes = level_sizes(side, levels)
+    pyr = torch.empty(2 * k * sum(s * s for s in sizes), dtype=torch.float32, device=gray.device)
+    views = pyramid_levels(pyr, k, side, levels)
+    ar = torch.arange(side, device=gray.device)
+    rows = origin[:, 1, None] + ar[None, :]  # (K, side)
+    cols = origin[:, 0, None] + ar[None, :]
+    idx = (rows[:, :, None] * w + cols[:, None, :]).reshape(-1)
+    torch.index_select(gray.reshape(2, h * w), 1, idx, out=views[0].view(2, -1))
+    for lvl in range(levels):
+        s, s_next = sizes[lvl], sizes[lvl + 1]
+        pyr_down(views[lvl].view(2 * k, s, s), out=views[lvl + 1].view(2 * k, s_next, s_next))
+    return pyr
+
+
+def _interp_weights(start: torch.Tensor, taps: int, size: int) -> torch.Tensor:
+    """(K,) continuous start positions -> (K, taps, size) linear
+    interpolation (hat-function) weights, edge-clamped."""
+    ar = torch.arange(taps, dtype=torch.float32, device=start.device)
+    pos = torch.clamp(start[:, None] + ar[None, :], 0.0, size - 1.0)
+    grid = torch.arange(size, dtype=torch.float32, device=start.device)
+    return torch.clamp(1.0 - torch.abs(pos[:, :, None] - grid[None, None, :]), min=0.0)
+
+
+def _sample_patches(rois: torch.Tensor, tl: torch.Tensor, taps: int) -> torch.Tensor:
+    """Bilinear-sample (K, taps, taps) patches at continuous in-ROI
+    top-left positions ``tl`` (K, 2) (rows first, then columns)."""
+    size = rois.shape[-1]
+    wy = _interp_weights(tl[:, 1], taps, size)
+    wx = _interp_weights(tl[:, 0], taps, size)
+    tmp = torch.einsum("kir,krc->kic", wy, rois)
+    return torch.einsum("kic,kjc->kij", tmp, wx)
+
+
+def _patch_grads(p_ext: torch.Tensor, window: int):
+    """(K, ext, ext) patches -> interior values + Scharr gradients, in the
+    JAX package's summation order."""
+    sm = (3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0)
+    dv = (-0.5, 0.0, 0.5)
+
+    def sep(k1, axis1, k2, axis2):
+        out = 0.0
+        for a in range(3):
+            row = 0.0
+            for b in range(3):
+                sl = [slice(None), slice(1, -1), slice(1, -1)]
+                sl[1 + axis1] = slice(a, a + window)
+                sl[1 + axis2] = slice(b, b + window)
+                row = row + k2[b] * p_ext[tuple(sl)]
+            out = out + k1[a] * row
+        return out
+
+    return p_ext[:, 1:-1, 1:-1], sep(sm, 0, dv, 1), sep(dv, 0, sm, 1)
+
+
+def engine_plain(pyr, origin, pts, side, levels, window=15, iterations=10, epsilon=0.03, record=None):
+    """Plain per-level engine on a packed pyramid (:func:`roi_pyramids`):
+    returns (g (K, 2), ok (K,) bool = det > 1e-6 at every level).
+    ``record``, when a list, receives ``(level, "prev", top_left, None)``
+    for each previous patch and ``(level, "curr", top_left, live)`` for
+    each Newton iteration's current patch (in-ROI (K, 2) x, y positions;
+    ``live`` marks the points that take the step): the pyramid taps and the
+    work this input needs, for roofline bounds."""
+    k = pts.shape[0]
+    views = pyramid_levels(pyr, k, side, levels)
+    half = (window - 1) / 2.0
+    ext = window + 2
+    origin_f = origin.to(torch.float32)
+    g = pts / (2.0**levels)
+    ok = torch.ones(k, dtype=torch.bool, device=pts.device)
+    eps_sq = torch.tensor(epsilon, dtype=torch.float32) ** 2
+    for lvl in range(levels, -1, -1):
+        if lvl < levels:
+            g = g * 2.0
+        o_lvl = origin_f / (2.0**lvl)
+        p_lvl = pts / (2.0**lvl)
+
+        prev_tl = p_lvl - o_lvl - (half + 1.0)
+        if record is not None:
+            record.append((lvl, "prev", prev_tl, None))
+        p_ext = _sample_patches(views[lvl][0], prev_tl, ext)
+        patch_i, gx, gy = _patch_grads(p_ext, window)
+        g11 = torch.sum(gx * gx, dim=(1, 2))
+        g12 = torch.sum(gx * gy, dim=(1, 2))
+        g22 = torch.sum(gy * gy, dim=(1, 2))
+        det = g11 * g22 - g12 * g12
+        invertible = det > 1e-6
+        safe_det = torch.where(invertible, det, torch.ones_like(det))
+
+        curr_lvl = views[lvl][1]
+        done = torch.zeros(k, dtype=torch.bool, device=pts.device)
+        for _ in range(iterations):
+            curr_tl = g - o_lvl - half
+            patch_j = _sample_patches(curr_lvl, curr_tl, window)
+            diff = patch_j - patch_i
+            b1 = torch.sum(diff * gx, dim=(1, 2))
+            b2 = torch.sum(diff * gy, dim=(1, 2))
+            dx = -(g22 * b1 - g12 * b2) / safe_det
+            dy = -(-g12 * b1 + g11 * b2) / safe_det
+            live = invertible & ~done
+            if record is not None:
+                record.append((lvl, "curr", curr_tl, live))
+            step = torch.where(live[:, None], torch.stack([dx, dy], -1), torch.zeros_like(g))
+            # cv2 TERM_CRITERIA_EPS: apply the step, then stop iterating once
+            # its squared norm falls below epsilon^2
+            done = done | (torch.sum(step * step, dim=-1) <= eps_sq.to(step.device))
+            g = g + step
+        ok = ok & invertible
+    return g, ok
+
+
+def roi_side(h: int, w: int) -> int:
+    """Full-resolution ROI side for an (h, w) frame."""
+    return min(ROI_SIDE, h - h % 4, w - w % 4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel (csrc/lk_flow.cu), built with nvcc at first use
+# ---------------------------------------------------------------------------
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CU_SRC = os.path.join(_PKG, "csrc", "lk_flow.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "eagle_tpu_torch")
+_CU_LIB = os.path.join(BUILD_DIR, "liblk_flow.so")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no a*b+c contraction: the sampling, Scharr and step arithmetic round
+    # like the plain version's separate operations
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_build_lock = threading.Lock()
+_lib = None
+#: launches of the CUDA kernel (one per lk_flow call on a CUDA tensor)
+launches = 0
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return cand if os.path.exists(cand) else "nvcc"
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/lk_flow.cu`` for sm_90a into the build directory
+    (when missing or older than the source) and return the library path;
+    raises with the compiler's output on failure."""
+    if os.path.exists(_CU_LIB) and os.path.getmtime(_CU_LIB) >= os.path.getmtime(_CU_SRC):
+        return _CU_LIB
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_CU_LIB}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, _CU_SRC]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {_CU_SRC}:\n{r.stdout}\n{r.stderr}")
+    if verbose:
+        print(r.stdout + r.stderr)
+    os.replace(tmp, _CU_LIB)
+    return _CU_LIB
+
+
+def _load():
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.lk_flow_levels.restype = ctypes.c_int
+            lib.lk_flow_levels.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float,
+                ctypes.c_void_p,
+            ]
+            _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"lk_flow kernel: {name} must be a contiguous {dtype} tensor of shape {shape} on "
+            f"{device}; got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})"
+        )
+
+
+def lk_flow_engine_cuda(
+    pyr: torch.Tensor,
+    origin: torch.Tensor,
+    pts: torch.Tensor,
+    side: int,
+    levels: int,
+    window: int = 15,
+    iterations: int = 10,
+    epsilon: float = 0.03,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA engine once for all levels: (g (K, 2) float32, ok
+    (K,) bool).  ``pyr`` is the packed pyramid of :func:`roi_pyramids`;
+    same contract as :func:`engine_plain`."""
+    global launches
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"lk_flow kernel needs CUDA tensors, got {dev}")
+    k = pts.shape[0]
+    if levels + 1 > 4:
+        raise ValueError(f"lk_flow kernel supports at most 4 pyramid levels, got {levels + 1}")
+    if window % 2 != 1 or (window + 2) ** 2 > 1024:
+        raise ValueError(f"lk_flow kernel needs an odd window with (window+2)^2 <= 1024, got {window}")
+    total = sum(s * s for s in level_sizes(side, levels))
+    _check(pyr, "pyramid", torch.float32, (2 * k * total,), dev)
+    pts_c = pts.to(torch.float32).contiguous()
+    origin_c = origin.to(torch.float32).contiguous()
+    _check(pts_c, "pts", torch.float32, (k, 2), dev)
+    _check(origin_c, "origin", torch.float32, (k, 2), dev)
+    out_g = torch.empty((k, 2), dtype=torch.float32, device=dev)
+    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lk_flow_levels(
+            pyr.data_ptr(), pts_c.data_ptr(), origin_c.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
+            k, side, levels, window, iterations, float(epsilon), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lk_flow kernel launch failed: cudaError {err}")
+    launches += 1
+    return out_g, out_ok.bool()
+
+
+# ---------------------------------------------------------------------------
+# the flow step
+# ---------------------------------------------------------------------------
+
+
+def _lk_flow(engine, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon):
+    h, w, _ = prev_bgr.shape
+    side = roi_side(h, w)
+    origin = roi_origins(pts, h, w, side, levels)
+    pyr = roi_pyramids(prev_bgr, curr_bgr, origin, side, levels)
+    g, ok = engine(pyr, origin, pts, side, levels, window, iterations, epsilon)
+    inside = (g[:, 0] >= 0) & (g[:, 0] <= w - 1) & (g[:, 1] >= 0) & (g[:, 1] <= h - 1)
+    return g, ok & inside & valid
+
+
+def lk_flow(
+    prev_bgr: torch.Tensor,
+    curr_bgr: torch.Tensor,
+    pts: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 15,
+    levels: int = 2,
+    iterations: int = 10,
+    epsilon: float = 0.03,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Track ``pts`` (K, 2) from ``prev_bgr`` to ``curr_bgr`` ((H, W, 3)
+    uint8).  Returns (new_pts (K, 2), status (K,)).  The engine is the CUDA
+    kernel for CUDA tensors and the plain engine for CPU tensors."""
+    engine = lk_flow_engine_cuda if pts.device.type == "cuda" else engine_plain
+    return _lk_flow(engine, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)
+
+
+def lk_flow_plain(
+    prev_bgr: torch.Tensor,
+    curr_bgr: torch.Tensor,
+    pts: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 15,
+    levels: int = 2,
+    iterations: int = 10,
+    epsilon: float = 0.03,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lk_flow` with the plain engine on any device: the kernel's
+    plain PyTorch version."""
+    return _lk_flow(engine_plain, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)

@@ -1,0 +1,223 @@
+"""Image preprocessing: working-canvas geometry, the host 4:2:0 prescale,
+the BT.601 inverse on the device, and the keypoint model's resize +
+normalisation.
+
+PyTorch counterpart of ``eagle_tpu/ops/preprocess.py``.  Frames are NHWC
+uint8 BGR at every public function, as in the JAX package; resizes are two
+dense interpolation products with the half-pixel (cv2 INTER_LINEAR)
+convention.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from eagle_tpu_torch.config import WorkGeometry
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+#: cv2's I420 encoding (Y, U = V) of the BGR (114, 114, 114) letterbox gray
+#: (cv2.cvtColor(COLOR_BGR2YUV_I420) of a gray-114 patch)
+I420_PAD_Y = 114
+I420_PAD_UV = 128
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix_half_pixel(out_size: int, in_size: int) -> np.ndarray:
+    """1-D linear interpolation matrix with the half-pixel (OpenCV
+    INTER_LINEAR / align_corners=False) convention, clamped at borders."""
+    M = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == 1:
+        M[:, 0] = 1.0
+        return M
+    scale = in_size / out_size
+    for o in range(out_size):
+        pos = (o + 0.5) * scale - 0.5
+        pos = min(max(pos, 0.0), in_size - 1.0)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, in_size - 1)
+        frac = pos - lo
+        M[o, lo] += 1.0 - frac
+        M[o, hi] += frac
+    return M
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2.INTER_LINEAR-compatible resize of an NHWC batch (any float or
+    uint8 input; returns float32)."""
+    Ho, Wo = out_hw
+    _, Hi, Wi, _ = x.shape
+    x = x.to(torch.float32)
+    if (Hi, Wi) == (Ho, Wo):
+        return x
+    Mh = torch.from_numpy(_interp_matrix_half_pixel(Ho, Hi)).to(x.device)
+    Mw = torch.from_numpy(_interp_matrix_half_pixel(Wo, Wi)).to(x.device)
+    y = torch.einsum("oh,nhwc->nowc", Mh, x)
+    return torch.einsum("ow,nhwc->nhoc", Mw, y)
+
+
+def normalize_imagenet(rgb: torch.Tensor) -> torch.Tensor:
+    """float RGB NHWC in [0, 255] -> (x - 255 mean) / (255 std)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=rgb.device) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=rgb.device) * 255.0
+    return (rgb - mean) / std
+
+
+def preprocess_keypoint(
+    frames: torch.Tensor, out_hw: tuple[int, int] = (540, 960), bgr_to_rgb: bool = True
+) -> torch.Tensor:
+    """uint8 BGR NHWC frames -> ImageNet-normalized float32 NHWC at
+    ``out_hw``: BGR->RGB, bilinear resize, then (x - 255 mean) / (255 std)."""
+    if bgr_to_rgb:
+        frames = frames.flip(-1)
+    return normalize_imagenet(resize_bilinear(frames, out_hw))
+
+
+def compute_work_geometry(orig_hw: tuple[int, int], size: int, stride: int = 32) -> WorkGeometry:
+    """Rectangular-letterbox geometry (ultralytics LetterBox(auto=True)):
+    scale to fit ``size`` keeping aspect, pad each dimension up to the next
+    ``stride`` multiple, centered with the +-0.1 rounding quirk."""
+    h, w = orig_hw
+    gain = min(size / h, size / w)
+    img_h, img_w = round(h * gain), round(w * gain)
+    pad_h = (-img_h) % stride
+    pad_w = (-img_w) % stride
+    top = int(round(pad_h / 2 - 0.1))
+    left = int(round(pad_w / 2 - 0.1))
+    return WorkGeometry(
+        enabled=True,
+        gain=gain,
+        pad_x=left,
+        pad_y=top,
+        img_h=img_h,
+        img_w=img_w,
+        canvas_h=img_h + pad_h,
+        canvas_w=img_w + pad_w,
+        orig_h=h,
+        orig_w=w,
+    )
+
+
+def letterbox(
+    frames: torch.Tensor, size: int = 640, pad_value: float = 114.0, bgr_to_rgb: bool = True
+) -> tuple[torch.Tensor, float, tuple[int, int]]:
+    """Ultralytics-style square letterbox of NHWC uint8 frames.
+
+    Returns (images (N, size, size, 3) float32 in [0, 1], gain, (left,
+    top)) where ``boxes_orig = (boxes_letterboxed - pad) / gain``."""
+    n, h, w, _ = frames.shape
+    gain = min(size / h, size / w)
+    new_h, new_w = round(h * gain), round(w * gain)
+    top = int(round((size - new_h) / 2 - 0.1))
+    left = int(round((size - new_w) / 2 - 0.1))
+    if bgr_to_rgb:
+        frames = frames.flip(-1)
+    resized = resize_bilinear(frames, (new_h, new_w))
+    canvas = torch.full((n, size, size, 3), pad_value, dtype=torch.float32, device=frames.device)
+    canvas[:, top : top + new_h, left : left + new_w] = resized
+    return canvas / 255.0, gain, (left, top)
+
+
+def resolve_upload_format(fmt: str, geom_enabled: bool) -> str:
+    """"auto" means 4:2:0 on the working-resolution path, raw BGR
+    otherwise; unknown values raise."""
+    if fmt == "auto":
+        return "yuv420" if geom_enabled else "bgr"
+    if fmt not in ("bgr", "yuv420"):
+        raise ValueError(f"upload_format must be 'auto', 'bgr' or 'yuv420', got {fmt!r}")
+    return fmt
+
+
+def i420_geometry_ok(geom, frame_hw: tuple[int, int]) -> bool:
+    """True when the 4:2:0 letterbox can place chroma exactly: every
+    offset/extent even at half resolution, both heights multiples of 4."""
+    h, w = frame_hw
+    return (
+        geom.enabled
+        and h % 4 == 0
+        and w % 2 == 0
+        and geom.canvas_h % 4 == 0
+        and geom.canvas_w % 2 == 0
+        and geom.img_h % 2 == 0
+        and geom.img_w % 2 == 0
+        and geom.pad_y % 2 == 0
+        and geom.pad_x % 2 == 0
+    )
+
+
+def native_prescale_ok(geom, frame_hw: tuple[int, int]) -> bool:
+    """The native kernel's byte-identical envelope: downscale with
+    ``img_w % 32 == 0`` plus the 4:2:0 placement gate."""
+    h, w = frame_hw
+    return (
+        geom.img_w % 32 == 0
+        and geom.img_h <= h
+        and geom.img_w <= w
+        and i420_geometry_ok(geom, (h, w))
+    )
+
+
+def host_letterbox_i420(frames_bgr: np.ndarray, geom) -> np.ndarray:
+    """Prescale straight in 4:2:0 on the host: BGR uint8 (N, H, W, 3) ->
+    packed I420 working canvas (N, canvas_h*3//2, canvas_w), through the
+    native kernel (native/prescale.cpp).
+
+    Only the native kernel's envelope is supported (see
+    :func:`native_prescale_ok`; every downscaling working geometry, e.g.
+    1280x720 -> 544x960); other geometries raise."""
+    n, h, w, _ = frames_bgr.shape
+    if not native_prescale_ok(geom, (h, w)):
+        raise NotImplementedError(
+            f"the 4:2:0 prescale supports downscaling geometries with img_w % 32 == 0 "
+            f"only; got {h}x{w} -> image {geom.img_h}x{geom.img_w} in canvas "
+            f"{geom.canvas_h}x{geom.canvas_w}"
+        )
+    from eagle_tpu_torch import native
+
+    return native.letterbox_i420(np.ascontiguousarray(frames_bgr), geom, I420_PAD_Y, I420_PAD_UV)
+
+
+def _yuv_planes_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) Y + (N, H/2, W/2) U/V (float32 holding bytes) -> BGR uint8.
+    BT.601 video-range inverse with nearest chroma upsampling:
+
+        b = yv + 2.018 u,  g = yv - 0.391 u - 0.813 v,  r = yv + 1.596 v,
+        yv = (y - 16) 1.164,  u, v centred on 128,
+
+    rounded to the nearest byte.  The float32 rounding reproduces the JAX
+    package's compiled CPU program, which fuses these into multiply-adds
+    (b = fma(2.018, u, yv), r = fma(1.596, v, yv), g = fma(-0.813, v,
+    fma(y - 16, 1.164, -(0.391 u)))): every fused step is computed exactly
+    in float64 and rounded once to float32, so the bytes are bit-equal on
+    every device."""
+    n, h, w = y.shape
+
+    def up2(c):
+        return c[:, :, None, :, None].expand(n, h // 2, 2, w // 2, 2).reshape(n, h, w)
+
+    f32, f64 = torch.float32, torch.float64
+    c = {k: float(np.float32(v)) for k, v in (("y", 1.164), ("bu", 2.018), ("gu", 0.391), ("gv", 0.813), ("rv", 1.596))}
+    u = (up2(u) - 128.0).to(f64)
+    v = (up2(v) - 128.0).to(f64)
+    ym = (y - 16.0).to(f64)
+    yv = (ym * c["y"]).to(f32).to(f64)
+    b = (yv + u * c["bu"]).to(f32)
+    g1 = (ym * c["y"] - (u * c["gu"]).to(f32).to(f64)).to(f32).to(f64)
+    g = (g1 - v * c["gv"]).to(f32)
+    r = (yv + v * c["rv"]).to(f32)
+    bgr = torch.stack([b, g, r], dim=-1)
+    return torch.clamp(torch.round(bgr), 0.0, 255.0).to(torch.uint8)
+
+
+def i420_to_bgr(planes: torch.Tensor) -> torch.Tensor:
+    """Packed I420 planes (N, H*3//2, W) uint8 -> BGR uint8 (N, H, W, 3)."""
+    n, h15, w = planes.shape
+    h = h15 * 2 // 3
+    y = planes[:, :h].to(torch.float32)
+    u = planes[:, h : h + h // 4].reshape(n, h // 2, w // 2).to(torch.float32)
+    v = planes[:, h + h // 4 :].reshape(n, h // 2, w // 2).to(torch.float32)
+    return _yuv_planes_to_bgr(y, u, v)

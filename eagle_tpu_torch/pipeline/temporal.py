@@ -1,0 +1,328 @@
+"""The sequential per-frame step of the pipeline (PyTorch counterpart of
+``eagle_tpu/pipeline/temporal.py``).
+
+The JAX package runs this step under ``lax.scan``; here it is a Python
+function called once per frame in a loop.  The carry holds the
+genuinely sequential state -- keypoints, homography, the retry flag and
+the tracker.  Per frame, in order:
+
+  1. LK optical-flow propagation of the previous keypoints (the flow
+     kernel) with the movement z-score and hue-change filters;
+  2. the keypoint cadence / merge rules on fixed 57-slot tensors;
+  3. geometric keypoint synthesis;
+  4. RANSAC homography at the configured cadence, with retry on failure
+     and inlier filtering -- ``lax.cond`` becomes a Python ``if`` on a
+     host bool, one device sync per frame;
+  5. a BoT-SORT step on the frame's detections, with the affine camera-
+     motion warp fitted to the keypoint flow.
+
+Brightness-snap calibration (off by default) and the features GMC are not
+ported yet; their settings raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from eagle_tpu_torch import pitch
+from eagle_tpu_torch.config import PipelineConfig
+from eagle_tpu_torch.ops import color
+from eagle_tpu_torch.ops.geometry import masked_median, synthesize_keypoints
+from eagle_tpu_torch.ops.homography import ransac_homography, sample_minimal_sets
+from eagle_tpu_torch.ops.optical_flow import lk_flow
+from eagle_tpu_torch.track import botsort
+
+FLOW_BACKENDS = ("xla", "pallas2")
+
+_ON_PLANE = np.array(pitch.ON_PLANE_MASK)
+_WORLD_XY = pitch.WORLD_XY.astype(np.float32)
+
+
+class TemporalCarry(NamedTuple):
+    kp_xy: torch.Tensor  # (57, 2) previous keypoints (integer-valued floats)
+    kp_valid: torch.Tensor  # (57,)
+    H: torch.Tensor  # (3, 3) image -> pitch homography
+    H_ok: torch.Tensor  # () any homography ever computed
+    retry_h: torch.Tensor  # () recompute at the next frame
+    tracker: botsort.TrackerState
+
+
+class FrameInputs(NamedTuple):
+    frame_bgr: torch.Tensor  # (H, W, 3) uint8
+    prev_frame_bgr: torch.Tensor  # (H, W, 3) uint8 previous frame
+    model_kp: torch.Tensor  # (57, 3) memoized keypoint-model output
+    model_kp_valid: torch.Tensor  # (57,)
+    is_kp_frame: bool  # t % keypoint_interval == 0
+    is_h_frame: bool  # t % homography_interval == 0
+    det_boxes: torch.Tensor  # (D, 4) xyxy
+    det_conf: torch.Tensor  # (D,)
+    det_cls: torch.Tensor  # (D,)
+    det_valid: torch.Tensor  # (D,)
+    t: int  # frame index
+
+
+class FrameOutputs(NamedTuple):
+    kp_xy: torch.Tensor  # (57, 2)
+    kp_valid: torch.Tensor  # (57,)
+    #: non-cadence frame whose flow collapsed below 4 points with no
+    #: memoized model output: the caller runs the keypoint model on demand
+    need_kp: torch.Tensor
+    H: torch.Tensor  # (3, 3)
+    H_ok: torch.Tensor  # ()
+    track_boxes: torch.Tensor  # (T, 4)
+    track_id: torch.Tensor  # (T,)
+    track_conf: torch.Tensor  # (T,)
+    track_cls: torch.Tensor  # (T,)
+    track_valid: torch.Tensor  # (T,)
+
+
+def check_config(cfg: PipelineConfig) -> None:
+    """Raise on settings this port does not run (yet)."""
+    if cfg.flow.backend not in FLOW_BACKENDS:
+        raise ValueError(
+            f"unknown flow backend {cfg.flow.backend!r}; valid: 'xla', 'pallas2' (synonyms: "
+            "the flow step runs the CUDA kernel on the card, its plain version on the CPU)"
+        )
+    if cfg.calibration:
+        raise NotImplementedError("brightness-snap calibration is not ported yet")
+    if cfg.tracker.gmc == "features":
+        raise NotImplementedError("the features GMC is not ported yet (TrackerConfig.gmc)")
+
+
+def init_carry(cfg: PipelineConfig, device) -> TemporalCarry:
+    return TemporalCarry(
+        kp_xy=torch.zeros(57, 2, device=device),
+        kp_valid=torch.zeros(57, dtype=torch.bool, device=device),
+        H=torch.eye(3, device=device),
+        H_ok=torch.zeros((), dtype=torch.bool, device=device),
+        retry_h=torch.zeros((), dtype=torch.bool, device=device),
+        tracker=botsort.init_state(cfg.tracker.max_tracks, device),
+    )
+
+
+def estimate_gmc_warp(
+    prev_xy: torch.Tensor, new_xy: torch.Tensor, valid: torch.Tensor, affine: bool = True
+) -> torch.Tensor:
+    """Camera-motion warp (2, 3) from tracked keypoint correspondences:
+    the least-squares affine on the valid pairs (centred normal
+    equations), or the median translation below 3 pairs (always, with
+    ``affine=False``)."""
+    dev = prev_xy.device
+    tx = masked_median(new_xy[:, 0] - prev_xy[:, 0], valid)
+    ty = masked_median(new_xy[:, 1] - prev_xy[:, 1], valid)
+    trans = torch.eye(2, 3, device=dev)
+    trans[:, 2] = torch.stack([tx, ty])
+    if not affine:
+        return trans
+    m = valid.to(torch.float32)
+    cnt = m.sum()
+    mu = (prev_xy * m[:, None]).sum(0) / torch.clamp(cnt, min=1.0)
+    a = (prev_xy - mu) * m[:, None]
+    b = (new_xy - mu) * m[:, None]
+    A = torch.cat([a, m[:, None]], dim=-1)  # (K, 3), masked rows = 0
+    M = A.T @ A + 1e-4 * torch.eye(3, device=dev)
+    sol = torch.linalg.solve_ex(M, A.T @ b)[0]  # (3, 2): [R^T; t'^T]
+    R = sol[:2].T
+    t = sol[2] + mu - R @ mu
+    aff = torch.cat([R, t[:, None]], dim=1)
+    return torch.where(cnt >= 3, aff, trans)
+
+
+def flow_with_filters(
+    frame_bgr: torch.Tensor,
+    prev_frame_bgr: torch.Tensor,
+    kp_xy: torch.Tensor,
+    kp_valid: torch.Tensor,
+    cfg: PipelineConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Optical-flow keypoint propagation with the reference's filters
+    (movement z-score > 2 and 3x3 mean hue change > 25 rejected).  Returns
+    integer-truncated points + mask, in ORIGINAL image coordinates; with a
+    working geometry the frames are canvases and points are mapped through
+    the letterbox for sampling only."""
+    if cfg.flow.backend not in FLOW_BACKENDS:
+        check_config(cfg)
+    g = cfg.work
+    dev = kp_xy.device
+    scale = float(g.gain) if g.enabled else 1.0
+    pad = torch.tensor([g.pad_x, g.pad_y] if g.enabled else [0.0, 0.0], dtype=torch.float32, device=dev)
+    scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
+    new_w, status = lk_flow(
+        prev_frame_bgr,
+        frame_bgr,
+        kp_xy * scale_t + pad,
+        kp_valid,
+        window=cfg.flow.window,
+        levels=cfg.flow.pyramid_levels,
+        iterations=cfg.flow.iterations,
+        epsilon=cfg.flow.epsilon,
+    )
+    new_pts = (new_w - pad) / scale_t
+    if g.enabled:
+        status = (
+            status
+            & (new_pts[:, 0] >= 0)
+            & (new_pts[:, 0] <= g.orig_w - 1)
+            & (new_pts[:, 1] >= 0)
+            & (new_pts[:, 1] <= g.orig_h - 1)
+        )
+    d = new_pts - kp_xy
+    moves = torch.sqrt((d * d).sum(-1))
+    n = torch.clamp(status.sum(), min=1)
+    zero = torch.zeros_like(moves)
+    mean = torch.where(status, moves, zero).sum() / n
+    var = torch.where(status, (moves - mean) ** 2, zero).sum() / n
+    std = torch.sqrt(var) + 1e-6
+    z_ok = (moves - mean) / std <= cfg.flow.zscore_max
+
+    new_int = torch.trunc(new_pts)
+    k = kp_xy.shape[0]
+    hue_both = color.window_mean_hue(
+        frame_bgr, torch.cat([kp_xy * scale_t + pad, new_int * scale_t + pad], dim=0)
+    )
+    hue_ok = torch.abs(hue_both[k:] - hue_both[:k]) <= cfg.flow.hue_delta_max
+    return new_int, status & z_ok & hue_ok
+
+
+def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig):
+    """Flow + cadence merge + synthesis.  Returns (flow_xy, flow_valid,
+    kp_xy, kp_valid, need_kp, corr_valid, do_h) with do_h a host bool."""
+    t0 = xs.t > 0
+    flow_xy, flow_valid = flow_with_filters(
+        xs.frame_bgr,
+        xs.prev_frame_bgr,
+        carry.kp_xy,
+        carry.kp_valid & t0,
+        cfg,
+    )
+
+    model_valid = xs.model_kp_valid
+    model_xy = xs.model_kp[:, :2]
+    model_count = model_valid.sum()
+    # flow participates on non-model frames, or when the model found < 4
+    use_flow = (model_count < 4) | (not xs.is_kp_frame) if t0 else torch.zeros((), dtype=torch.bool, device=model_xy.device)
+    kp_valid = (flow_valid & use_flow) | model_valid
+    kp_xy = torch.where(model_valid[:, None], model_xy, flow_xy)
+    # reference on-demand detection trigger
+    need_kp = (model_count == 0) & (flow_valid.sum() < 4) & (t0 and not xs.is_kp_frame)
+
+    if cfg.synthesis.enabled:
+        syn_xy, syn_valid = synthesize_keypoints(
+            kp_xy,
+            kp_valid,
+            min_points_per_line=cfg.synthesis.min_points_per_line,
+            max_new_points=cfg.synthesis.max_new_points,
+        )
+        do_syn = kp_valid.sum() >= cfg.synthesis.min_keypoints
+        kp_xy = torch.where(do_syn, syn_xy, kp_xy)
+        kp_valid = torch.where(do_syn, syn_valid, kp_valid)
+
+    corr_valid = kp_valid & torch.from_numpy(_ON_PLANE).to(kp_valid.device)
+    do_h = (xs.is_h_frame | carry.retry_h) & (corr_valid.sum() >= cfg.homography.min_points)
+    return flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, bool(do_h)
+
+
+def _run_ransac(kp_xy, corr_valid, gumbel: torch.Tensor, cfg: PipelineConfig):
+    sets = sample_minimal_sets(gumbel, corr_valid)
+    return ransac_homography(
+        kp_xy.to(torch.float32),
+        torch.from_numpy(_WORLD_XY).to(kp_xy.device),
+        corr_valid,
+        sets,
+        threshold=cfg.homography.reproj_threshold,
+        refine_steps=cfg.homography.refine_steps,
+        lmeds_fallback=cfg.homography.lmeds_fallback,
+    )
+
+
+def temporal_step(
+    carry: TemporalCarry,
+    xs: FrameInputs,
+    cfg: PipelineConfig,
+    gumbel_fn,
+) -> tuple[TemporalCarry, FrameOutputs]:
+    """One frame.  ``gumbel_fn(t)`` returns the frame's (iters, 57) RANSAC
+    Gumbel noise as a tensor on the device (drawn only on frames that
+    solve a homography)."""
+    flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(
+        carry, xs, cfg
+    )
+    if do_h:
+        H_new, inliers, h_success = _run_ransac(kp_xy, corr_valid, gumbel_fn(xs.t), cfg)
+    else:
+        H_new, inliers = carry.H, kp_valid
+        h_success = torch.zeros((), dtype=torch.bool, device=kp_xy.device)
+    return _post_homography(
+        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
+    )
+
+
+def _post_homography(
+    carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
+):
+    H = torch.where(h_success, H_new, carry.H)
+    H_ok = carry.H_ok | h_success
+    # on success the keypoint set collapses to the homography inliers
+    kp_valid = torch.where(h_success, inliers, kp_valid)
+    # a failed or starved attempt at an interval frame retries next frame
+    attempted = carry.retry_h | xs.is_h_frame
+    retry_h = attempted & ~h_success
+
+    gmc = None
+    if cfg.tracker.gmc != "off":
+        gmc = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=cfg.tracker.gmc == "affine")
+    tracker, tout = botsort.step(
+        carry.tracker,
+        xs.det_boxes,
+        xs.det_conf,
+        xs.det_cls,
+        xs.det_valid,
+        cfg.tracker,
+        gmc_warp=gmc,
+    )
+    new_carry = TemporalCarry(
+        kp_xy=kp_xy, kp_valid=kp_valid, H=H, H_ok=H_ok, retry_h=retry_h, tracker=tracker
+    )
+    out = FrameOutputs(
+        kp_xy=kp_xy,
+        kp_valid=kp_valid,
+        need_kp=need_kp,
+        H=H,
+        H_ok=H_ok,
+        track_boxes=tout.boxes,
+        track_id=tout.track_id,
+        track_conf=tout.conf,
+        track_cls=tout.cls,
+        track_valid=tout.valid,
+    )
+    return new_carry, out
+
+
+def backward_seed(
+    frames_bgr: torch.Tensor,
+    seed_xy: torch.Tensor,
+    seed_valid: torch.Tensor,
+    cfg: PipelineConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """First-frame seeding: from keypoints at frame j (the last of
+    ``frames_bgr`` (J+1, H, W, 3)) flow BACKWARD to frame 0.  Returns
+    (kp_xy (J+1, 57, 2), kp_valid (J+1, 57)); the last row repeats the
+    seed."""
+    j = frames_bgr.shape[0] - 1
+    kp_xy, kp_valid = seed_xy, seed_valid
+    xs_xy, xs_valid = [], []
+    for idx in range(j - 1, -1, -1):
+        # track from frame idx+1 to frame idx starting at kp_{idx+1} (the
+        # reference's inverted-arguments backward pass)
+        flow_xy, flow_valid = flow_with_filters(frames_bgr[idx + 1], frames_bgr[idx], kp_xy, kp_valid, cfg)
+        any_flow = flow_valid.any()
+        kp_xy = torch.where(any_flow, flow_xy, kp_xy)
+        kp_valid = torch.where(any_flow, flow_valid, kp_valid)
+        xs_xy.append(kp_xy)
+        xs_valid.append(kp_valid)
+    out_xy = torch.stack(xs_xy[::-1] + [seed_xy]) if xs_xy else seed_xy[None]
+    out_valid = torch.stack(xs_valid[::-1] + [seed_valid]) if xs_valid else seed_valid[None]
+    return out_xy, out_valid

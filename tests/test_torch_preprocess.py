@@ -1,0 +1,76 @@
+"""PyTorch port, preprocessing: the 4:2:0 host prescale, the BT.601
+inverse, the gray conversion and the keypoint/detector resizes against the
+JAX package on the same seeded inputs.
+
+Tolerances: the prescale bytes, the I420 -> BGR bytes and the flow gray
+are bit-equal; the float resizes agree to 1e-5 (the same interpolation
+matrices, summed in another order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eagle_tpu.ops import preprocess as jp
+from eagle_tpu.ops.optical_flow import _GRAY_W
+from eagle_tpu_torch.config import WorkGeometry
+from eagle_tpu_torch.ops import preprocess as tp
+from eagle_tpu_torch.ops.optical_flow import bgr_to_gray
+
+from .torch_parity import n, t
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("shape", [(2, 96 * 3 // 2, 128), (2, 544 * 3 // 2, 960)])
+def test_i420_to_bgr_bit_equal(shape):
+    planes = np.random.default_rng(0).integers(0, 256, shape, np.uint8)
+    np.testing.assert_array_equal(n(tp.i420_to_bgr(t(planes))), n(jp.i420_to_bgr(jnp.asarray(planes))))
+
+
+def test_gray_bit_equal():
+    img = np.random.default_rng(1).integers(0, 256, (200, 300, 3), np.uint8)
+    want = np.round(np.asarray(jnp.asarray(img).astype(jnp.float32) @ jnp.asarray(_GRAY_W)))
+    np.testing.assert_array_equal(n(bgr_to_gray(t(img))), want)
+
+
+@pytest.mark.parametrize("hw,size", [((720, 1280), 960), ((360, 640), 320), ((1080, 1920), 960)])
+def test_work_geometry_and_native_letterbox(hw, size):
+    gj = jp.compute_work_geometry(hw, size)
+    gt = tp.compute_work_geometry(hw, size)
+    assert dataclass_tuple(gt) == dataclass_tuple(gj)
+    frames = np.random.default_rng(2).integers(0, 256, (2, *hw, 3), np.uint8)
+    np.testing.assert_array_equal(tp.host_letterbox_i420(frames, gt), jp.host_letterbox_i420(frames, gj))
+
+
+def dataclass_tuple(g):
+    return tuple(getattr(g, f) for f in WorkGeometry.__dataclass_fields__)
+
+
+def test_letterbox_outside_native_envelope_raises():
+    g = tp.compute_work_geometry((192, 320), 960)  # an upscale
+    frames = np.zeros((1, 192, 320, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="downscaling"):
+        tp.host_letterbox_i420(frames, g)
+
+
+def test_resizes_match():
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (2, 72, 128, 3), np.uint8)
+    np.testing.assert_allclose(
+        n(tp.preprocess_keypoint(t(x), (54, 96))),
+        np.asarray(jp.preprocess_keypoint(jnp.asarray(x), out_hw=(54, 96))),
+        atol=1e-5,
+    )
+    img_t, gain_t, pad_t = tp.letterbox(t(x), size=160)
+    img_j, gain_j, pad_j = jp.letterbox(jnp.asarray(x), size=160)
+    np.testing.assert_allclose(n(img_t), np.asarray(img_j), atol=1e-6)
+    assert gain_t == pytest.approx(float(gain_j))
+    assert list(pad_t) == np.asarray(pad_j).tolist()
+
+
+def test_upload_format_resolution():
+    assert tp.resolve_upload_format("auto", True) == "yuv420"
+    assert tp.resolve_upload_format("auto", False) == "bgr"
+    with pytest.raises(ValueError):
+        tp.resolve_upload_format("nv12", True)
