@@ -9,10 +9,11 @@ Phases (any failure exits non-zero, nothing is caught):
    parallel, from the sources in this checkout;
 2. kernel: every kernel of the main path against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes -- the LK
-   flow kernel at K = 57 points on the 544x960 canvas: status bit-equal,
-   positions within 1e-2 px -- plus timings: the kernel's device time (from
-   the profiler's trace), its wrapper's and the plain version's (CUDA
-   events);
+   flow kernel, the whole flow step in one launch, at K = 57 points on the
+   544x960 canvas: status bit-equal, positions within 1e-2 px, exactly one
+   device kernel a call -- plus timings: the kernel's device time (from
+   the profiler's trace), the call's and the plain version's (CUDA
+   events), and the bound;
 3. reference: the slice on the card against the port's plain CPU path on
    a 12-frame clip with oracle models that know the clip's geometry, and
    the tracked keypoints against the true landmark pixels;
@@ -87,10 +88,14 @@ TARGET_DETECTIONS = 25
 #: apart, so few boxes score between NMS's floor (0.15) and the keep
 #: threshold (0.35); at a spread of 1 such boxes fill the 128 slots
 CLS_LOGIT_STD = 4.0
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non
-#: tensor-core) FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 (non
+#: tensor-core) instructions/s.  The sheet's 67 TFLOP/s counts a fused
+#: multiply-add as two operations; the flow kernel is built with
+#: -fmad=false, so its multiplies and adds are separate instructions, and
+#: one instruction (multiply, add or fused multiply-add) a lane a cycle,
+#: 132 SMs x 128 lanes x 1.98 GHz, is half that rate
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_INSTR_S = 33.5e12
 
 
 def fail(msg: str) -> None:
@@ -198,63 +203,50 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
 
-def _taps(start: np.ndarray, taps: int, size: int) -> np.ndarray:
-    """(K,) float32 patch starts on one axis -> (K, size) bool: the grid
-    lines that a bilinear sample of ``taps`` consecutive positions from
-    ``start`` (clamped to the ROI) gives a nonzero weight."""
-    pos = np.clip(start[:, None] + np.arange(taps, dtype=np.float32), 0.0, size - 1.0)
-    lo = np.floor(pos).astype(np.int64)
-    rows = np.broadcast_to(np.arange(len(start))[:, None], lo.shape)
-    mask = np.zeros((len(start), size), bool)
-    mask[rows, lo] = True
-    frac = pos > lo
-    mask[rows[frac], np.minimum(lo + 1, size - 1)[frac]] = True
-    return mask
+def lk_flow_work(origin, hw, side: int, record, levels: int = 2, window: int = 15) -> tuple[int, int, int]:
+    """(bytes, arithmetic instructions, live Newton steps) of one flow
+    step, for the K points whose ROI ``origin`` (K, 2) the plain version
+    computed and whose engine run filled ``record`` (:func:`engine_plain`).
+    Bytes: the BGR bytes of the union of the K ROIs in each frame, each
+    read once, plus the points and ``valid`` read and the outputs (g,
+    status) written.  Instructions, each a multiply, an add or a fused
+    multiply-add: the gray over the union of the ROIs in each frame (4 a
+    pixel: a multiply, two fused multiply-adds and the rounding); per
+    point pyrDown as ``pyr_down`` computes it (8 an output pixel of each
+    axis pass, both frames) and the engine: per level the previous patch
+    (~20 a tap), Scharr gradients (~24 a tap) and the structure tensor (6
+    a tap), plus ~25 a tap for every live Newton step."""
+    from eagle_tpu_torch.ops.optical_flow import level_sizes
 
-
-def lk_flow_work(record, k: int, sizes, window: int = 15) -> tuple[int, int, int]:
-    """(bytes, operations, live Newton steps) that the flow engine needs
-    for the input whose ``record`` :func:`engine_plain` filled.  Bytes:
-    every pyramid tap with a nonzero bilinear weight, read once -- per
-    point and level the taps under the (window+2)^2 previous patch and the
-    union of the window^2 current patches that its live Newton steps
-    sample -- plus the points and origins read and the outputs written
-    once.  Operations, counted from the algorithm: per point and level the
-    previous patch (~20 ops a tap), Scharr gradients (~24 a tap) and the
-    structure tensor (6 a tap), plus ~25 ops a tap for every live Newton
-    step."""
+    h, w = hw
+    k = len(origin)
+    union = np.zeros((h, w), bool)
+    for x0, y0 in np.asarray(origin.cpu()).tolist():
+        union[y0 : y0 + side, x0 : x0 + side] = True
+    n_union = int(union.sum())
+    # 3 B a pixel in each frame; pts and valid read, g and status written
+    nbytes = 2 * 3 * n_union + k * (8 + 1) + k * (8 + 1)
+    sizes = level_sizes(side, levels)
+    pyr_ops = sum(8 * (s * sd + sd * sd) for s, sd in zip(sizes, sizes[1:]))
+    live_steps = sum(int(live.sum()) for _, kind, _, live in record if kind == "curr")
     ext = window + 2
-    touched = {}
-    live_steps = 0
-    for lvl, kind, tl, live in record:
-        s = sizes[lvl]
-        tl = tl.cpu().numpy().astype(np.float32)
-        taps = ext if kind == "prev" else window
-        foot = _taps(tl[:, 1], taps, s)[:, :, None] & _taps(tl[:, 0], taps, s)[:, None, :]
-        if live is not None:
-            live = live.cpu().numpy()
-            live_steps += int(live.sum())
-            foot &= live[:, None, None]
-        key = (lvl, kind)
-        touched[key] = touched[key] | foot if key in touched else foot
-    n_taps = sum(int(m.sum()) for m in touched.values())
-    nbytes = n_taps * 4 + 2 * k * 2 * 4 + k * 2 * 4 + k * 4
     setup = ext * ext * 20 + window * window * (24 + 6)
-    ops = k * len(sizes) * setup + live_steps * window * window * 25
+    ops = 2 * 4 * n_union + k * (2 * pyr_ops + len(sizes) * setup) + live_steps * window * window * 25
     return nbytes, ops, live_steps
 
 
-def phase_kernel(frames, pts):
-    """LK flow kernel vs its plain version at K = 57 on the canvas."""
+def flow_input(frames, pts):
+    """The flow step's K = 57 input on the 544x960 canvas: frames 0 and 6
+    of the clip through the slice's 4:2:0 prescale and decode, the line
+    intersections in view, 8 points on and near the borders, random points
+    for the rest; ``valid`` false for one point."""
     import torch
 
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.ops.preprocess import compute_work_geometry, host_letterbox_i420, i420_to_bgr
 
     dev = torch.device("cuda")
     geom = compute_work_geometry(FRAME_HW, 960)
     canvas = i420_to_bgr(torch.from_numpy(host_letterbox_i420(frames[[0, 6]], geom)).to(dev))
-    prev, curr = canvas[0], canvas[1]
     ch, cw = geom.canvas_h, geom.canvas_w
     rng = np.random.default_rng(SEED + 1)
     inter = pts[0] * geom.gain + [geom.pad_x, geom.pad_y]
@@ -266,11 +258,53 @@ def phase_kernel(frames, pts):
     )
     rand = rng.uniform([0, 0], [cw - 1, ch - 1], (57 - len(inter) - len(borders), 2))
     p = torch.from_numpy(np.concatenate([inter, borders, rand]).astype(np.float32)).to(dev)
-    k = p.shape[0]
-    assert k == 57, k
-    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    assert p.shape[0] == 57, p.shape
+    valid = torch.ones(57, dtype=torch.bool, device=dev)
     valid[5] = False
+    return canvas[0], canvas[1], p, valid
 
+
+def flow_step_timing(of, prev, curr, p, valid, reps: int = 20) -> dict:
+    """One flow step (``of.lk_flow``) on CUDA tensors: device operations
+    (kernels, and copies and sets) a call and their device time summed,
+    from the profiler's trace over ``reps`` calls; the flow kernel's own
+    device time a launch (every kernel named ``lk_flow*``); the wall of a
+    call by CUDA events.  Works on any
+    version of ``eagle_tpu_torch.ops.optical_flow`` with ``lk_flow``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        return of.lk_flow(prev, curr, p, valid)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    ops = [e for e in trace_events(prof) if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in ops if e["cat"] == "kernel"]
+    flow = [e["dur"] for e in kernels if "lk_flow" in e["name"]]
+    return {
+        "kernels_per_call": len(kernels) / reps,
+        "device_ops_per_call": len(ops) / reps,
+        "device_ms_per_call": sum(e["dur"] for e in ops) / reps / 1e3,
+        "flow_kernel_ms": sum(flow) / len(flow) / 1e3,
+        "wall_ms_per_call": cuda_ms(call, reps=100, warmup=5),
+    }
+
+
+def phase_kernel(frames, pts):
+    """The LK flow kernel vs its plain version at K = 57 on the canvas:
+    status bit-equal, positions within FLOW_ATOL, one device kernel a call;
+    its device time, the call's wall, the plain version's, and the bound."""
+    import torch
+
+    from eagle_tpu_torch.ops import optical_flow as of
+
+    prev, curr, p, valid = flow_input(frames, pts)
+    k = p.shape[0]
     launches0 = of.launches
     g_k, s_k = of.lk_flow(prev, curr, p, valid)
     torch.cuda.synchronize()
@@ -287,26 +321,26 @@ def phase_kernel(frames, pts):
     if not err <= FLOW_ATOL:
         fail(f"lk_flow positions differ from the plain version by {err} > {FLOW_ATOL}")
 
-    # engine timings on the same pyramid (the ROI/pyramid build is shared)
     h, w = prev.shape[:2]
     side = of.roi_side(h, w)
     origin = of.roi_origins(p, h, w, side, 2)
-    pyr = of.roi_pyramids(prev, curr, origin, side, 2)
     record: list = []
-    of.engine_plain(pyr, origin, p, side, 2, record=record)
-    nbytes, ops, live_steps = lk_flow_work(record, k, of.level_sizes(side, 2))
-    launches0 = of.launches
-    engine = lambda: of.lk_flow_engine_cuda(pyr, origin, p, side, 2)  # noqa: E731
-    ms = kernel_device_ms(engine, "lk_flow_kernel")
-    wrapper_ms = cuda_ms(engine)
-    plain_ms = cuda_ms(lambda: of.engine_plain(pyr, origin, p, side, 2), reps=5)
+    of.engine_plain(of.roi_pyramids(prev, curr, origin, side, 2), origin, p, side, 2, record=record)
+    nbytes, ops, live_steps = lk_flow_work(origin, (h, w), side, record)
+    step = flow_step_timing(of, prev, curr, p, valid)
+    plain_ms = cuda_ms(lambda: of.lk_flow_plain(prev, curr, p, valid), reps=5)
     of.launches = launches0  # comparison launches are not main-path launches
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    if step["kernels_per_call"] != 1 or step["device_ops_per_call"] != 1:
+        fail(f"one lk_flow call ran {step['device_ops_per_call']} device operations, expected the one kernel")
+    ms = step["flow_kernel_ms"]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
+    bound = max(t_bytes, t_ops)
     print(
-        f"kernel lk_flow: {ms:.4f} ms device time a launch (wrapper {wrapper_ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms); needs {nbytes} B of pyramid taps and I/O and {ops} ops "
-        f"({live_steps} live Newton steps; the packed pyramid holds {pyr.numel() * 4} B) -> "
-        f"bound {max(t_bytes, t_ops) * 1e3:.4f} us, kernel {ms / max(t_bytes, t_ops):.1f}x over it"
+        f"kernel lk_flow: {ms:.4f} ms device time a launch, one device kernel a call, call "
+        f"{step['wall_ms_per_call']:.4f} ms (CUDA events), plain {plain_ms:.3f} ms; needs {nbytes} B "
+        f"(union of the ROIs, both frames, and I/O) = {t_bytes * 1e3:.4f} us and {ops} f32 instructions "
+        f"({live_steps} live Newton steps) = {t_ops * 1e3:.4f} us -> bound {bound * 1e3:.4f} us by "
+        f"{'bytes' if t_bytes >= t_ops else 'operations'}, kernel {ms / bound:.1f}x over it"
     )
     return {
         "name": "lk_flow",
@@ -317,7 +351,7 @@ def phase_kernel(frames, pts):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
@@ -618,25 +652,6 @@ def trace_events(prof) -> list[dict]:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     os.remove(trace)
     return events
-
-
-def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
-    """Mean device time of the kernel whose name contains ``name`` over
-    ``reps`` calls of ``fn``, from the profiler's device trace (CUPTI):
-    the kernel alone, without its wrapper's host work or input packing."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e["dur"] for e in trace_events(prof) if e.get("cat") == "kernel" and name in e["name"]]
-    if len(durs) != reps:
-        fail(f"the profiler saw {len(durs)} launches of {name}, expected {reps}")
-    return sum(durs) / reps / 1e3
 
 
 def phase_profile(model, frames, out_path: str) -> None:

@@ -3,18 +3,19 @@ semantics: window 15, maxLevel 2, 10 iterations, eps 0.03).
 
 PyTorch counterpart of ``eagle_tpu/ops/optical_flow.py::lk_flow``, whose
 per-level engine the JAX package also runs as the Pallas kernel
-``eagle_tpu/ops/pallas_flow2.py::lk_flow_pallas2``.  Here the engine is
-the hand-written CUDA kernel ``csrc/lk_flow.cu``:
+``eagle_tpu/ops/pallas_flow2.py::lk_flow_pallas2``.  Here the whole flow
+step is the hand-written CUDA kernel ``csrc/lk_flow.cu``:
 
-- :func:`lk_flow` is the flow step.  It builds each point's 192-px gray
-  ROI pair and the ROI pyramids with plain tensor ops, straight into the
-  packed layout the kernel reads (:func:`roi_pyramids`), then runs the
-  per-point engine over all levels: the CUDA kernel for a CUDA tensor (one
-  launch per frame; it raises if the kernel does not build or launch), the
-  plain engine for a CPU tensor.
-- :func:`lk_flow_plain` is the same function with the plain engine on any
-  device, a transcription of the JAX ``lk_flow`` (bilinear sampling as
-  hat-weight products, the ROI clamp, the cv2 TERM_CRITERIA_EPS freeze).
+- :func:`lk_flow` is the flow step.  On CUDA tensors it is one launch of
+  the kernel (:func:`lk_flow_cuda`): uint8 frames and points in, tracked
+  points and status out; the ROIs, their gray pyramids and the Newton
+  steps stay in the block's shared memory.  It raises if the kernel does
+  not build or launch.  On CPU tensors it is :func:`lk_flow_plain`.
+- :func:`lk_flow_plain` is the kernel's plain version on any device, a
+  transcription of the JAX ``lk_flow``: each point's 192-px gray ROI pair
+  and its pyramid (:func:`roi_pyramids`), then the per-point engine
+  (:func:`engine_plain`: bilinear sampling as hat-weight products, the ROI
+  clamp, the cv2 TERM_CRITERIA_EPS freeze).
 
 Numerical conventions follow OpenCV: cv2-rounded gray, 5-tap Gaussian
 pyrDown with reflect-101 borders, Scharr /32 derivatives on the sampled
@@ -115,7 +116,7 @@ def roi_pyramids(
 ) -> torch.Tensor:
     """Gray ROI pair (K, side, side) at the shared origins and their
     ``levels`` pyrDown levels, written straight into one flat float32
-    tensor in the layout the CUDA kernel reads (see
+    tensor in the layout :func:`engine_plain` reads (see
     :func:`pyramid_levels`)."""
     k = origin.shape[0]
     gray = torch.stack([bgr_to_gray(prev_bgr), bgr_to_gray(curr_bgr)])  # (2, H, W)
@@ -285,11 +286,13 @@ def _load():
     with _build_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.lk_flow_levels.restype = ctypes.c_int
-            lib.lk_flow_levels.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_float,
-                ctypes.c_void_p,
-            ]
+            lib.lk_flow_smem_bytes.restype = ctypes.c_int
+            lib.lk_flow_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.lk_flow_fused_launch.restype = ctypes.c_int
+            lib.lk_flow_fused_launch.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_void_p]
+            )
             _lib = lib
     return _lib
 
@@ -303,62 +306,77 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device)
         )
 
 
-def lk_flow_engine_cuda(
-    pyr: torch.Tensor,
-    origin: torch.Tensor,
+#: the C function's own error codes (csrc/lk_flow.cu), beside cudaError_t
+_ERR_NO_ENCODE, _ERR_SMEM, _ERR_ENCODE = -1, -2, -1000
+
+
+def lk_flow_cuda(
+    prev_bgr: torch.Tensor,
+    curr_bgr: torch.Tensor,
     pts: torch.Tensor,
-    side: int,
-    levels: int,
+    valid: torch.Tensor,
     window: int = 15,
+    levels: int = 2,
     iterations: int = 10,
     epsilon: float = 0.03,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA engine once for all levels: (g (K, 2) float32, ok
-    (K,) bool).  ``pyr`` is the packed pyramid of :func:`roi_pyramids`;
-    same contract as :func:`engine_plain`."""
+    """The flow step as one launch of the CUDA kernel: (new_pts (K, 2)
+    float32, status (K,) bool), as :func:`lk_flow_plain` computes them.
+    Takes contiguous CUDA tensors: two (H, W, 3) uint8 frames whose rows
+    (3W bytes) and base addresses are multiples of 16 bytes (TMA's
+    alignment), ``pts`` (K, 2) float32, ``valid`` (K,) bool; raises
+    ``ValueError`` on anything else, before launching."""
     global launches
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"lk_flow kernel needs CUDA tensors, got {dev}")
-    k = pts.shape[0]
-    if levels + 1 > 4:
-        raise ValueError(f"lk_flow kernel supports at most 4 pyramid levels, got {levels + 1}")
-    if window % 2 != 1 or (window + 2) ** 2 > 1024:
-        raise ValueError(f"lk_flow kernel needs an odd window with (window+2)^2 <= 1024, got {window}")
-    total = sum(s * s for s in level_sizes(side, levels))
-    _check(pyr, "pyramid", torch.float32, (2 * k * total,), dev)
-    pts_c = pts.to(torch.float32).contiguous()
-    origin_c = origin.to(torch.float32).contiguous()
-    _check(pts_c, "pts", torch.float32, (k, 2), dev)
-    _check(origin_c, "origin", torch.float32, (k, 2), dev)
-    out_g = torch.empty((k, 2), dtype=torch.float32, device=dev)
-    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
+    if prev_bgr.dim() != 3:
+        raise ValueError(f"lk_flow kernel: frames must be (H, W, 3), got {tuple(prev_bgr.shape)}")
+    h, w = prev_bgr.shape[:2]
+    k = pts.shape[0] if pts.dim() else 0
+    _check(prev_bgr, "prev_bgr", torch.uint8, (h, w, 3), dev)
+    _check(curr_bgr, "curr_bgr", torch.uint8, (h, w, 3), dev)
+    _check(pts, "pts", torch.float32, (k, 2), dev)
+    _check(valid, "valid", torch.bool, (k,), dev)
+    if (3 * w) % 16 or prev_bgr.data_ptr() % 16 or curr_bgr.data_ptr() % 16:
+        raise ValueError(
+            f"lk_flow kernel: the frames' row pitch 3*W = {3 * w} B and base addresses must be "
+            f"multiples of 16 B (TMA); got W = {w}, addresses {prev_bgr.data_ptr():#x}, "
+            f"{curr_bgr.data_ptr():#x}"
+        )
+    if not 0 <= levels <= 3:
+        raise ValueError(f"lk_flow kernel supports 0-3 pyramid levels above the base, got {levels}")
+    if window % 2 != 1 or window > 31:
+        raise ValueError(f"lk_flow kernel needs an odd window of at most 31, got {window}")
+    side = roi_side(h, w)
     lib = _load()
+    out_g = torch.empty((k, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((k,), dtype=torch.bool, device=dev)
+    if k == 0:
+        return out_g, status
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lk_flow_levels(
-            pyr.data_ptr(), pts_c.data_ptr(), origin_c.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
-            k, side, levels, window, iterations, float(epsilon), stream,
+        err = lib.lk_flow_fused_launch(
+            prev_bgr.data_ptr(), curr_bgr.data_ptr(), h, w, pts.data_ptr(), valid.data_ptr(),
+            out_g.data_ptr(), status.data_ptr(), k, side, levels, window, iterations, float(epsilon), stream,
+        )
+    if err == _ERR_SMEM:
+        raise ValueError(
+            f"lk_flow kernel: side {side}, window {window} needs "
+            f"{lib.lk_flow_smem_bytes(side, levels, window)} B of shared memory a block, more than the card allows"
         )
     if err != 0:
-        raise RuntimeError(f"lk_flow kernel launch failed: cudaError {err}")
+        what = "cuTensorMapEncodeTiled is not available from the driver" if err == _ERR_NO_ENCODE else (
+            f"tensor map refused, CUresult {_ERR_ENCODE - err}" if err <= _ERR_ENCODE else f"cudaError {err}"
+        )
+        raise RuntimeError(f"lk_flow kernel launch failed: {what}")
     launches += 1
-    return out_g, out_ok.bool()
+    return out_g, status
 
 
 # ---------------------------------------------------------------------------
 # the flow step
 # ---------------------------------------------------------------------------
-
-
-def _lk_flow(engine, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon):
-    h, w, _ = prev_bgr.shape
-    side = roi_side(h, w)
-    origin = roi_origins(pts, h, w, side, levels)
-    pyr = roi_pyramids(prev_bgr, curr_bgr, origin, side, levels)
-    g, ok = engine(pyr, origin, pts, side, levels, window, iterations, epsilon)
-    inside = (g[:, 0] >= 0) & (g[:, 0] <= w - 1) & (g[:, 1] >= 0) & (g[:, 1] <= h - 1)
-    return g, ok & inside & valid
 
 
 def lk_flow(
@@ -372,10 +390,10 @@ def lk_flow(
     epsilon: float = 0.03,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Track ``pts`` (K, 2) from ``prev_bgr`` to ``curr_bgr`` ((H, W, 3)
-    uint8).  Returns (new_pts (K, 2), status (K,)).  The engine is the CUDA
-    kernel for CUDA tensors and the plain engine for CPU tensors."""
-    engine = lk_flow_engine_cuda if pts.device.type == "cuda" else engine_plain
-    return _lk_flow(engine, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)
+    uint8).  Returns (new_pts (K, 2), status (K,)): one launch of the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = lk_flow_cuda if pts.device.type == "cuda" else lk_flow_plain
+    return fn(prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)
 
 
 def lk_flow_plain(
@@ -388,6 +406,13 @@ def lk_flow_plain(
     iterations: int = 10,
     epsilon: float = 0.03,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`lk_flow` with the plain engine on any device: the kernel's
-    plain PyTorch version."""
-    return _lk_flow(engine_plain, prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)
+    """The kernel's plain PyTorch version, on any device: the ROI
+    pyramids (:func:`roi_pyramids`), then :func:`engine_plain` and the
+    inside test."""
+    h, w, _ = prev_bgr.shape
+    side = roi_side(h, w)
+    origin = roi_origins(pts, h, w, side, levels)
+    pyr = roi_pyramids(prev_bgr, curr_bgr, origin, side, levels)
+    g, ok = engine_plain(pyr, origin, pts, side, levels, window, iterations, epsilon)
+    inside = (g[:, 0] >= 0) & (g[:, 0] <= w - 1) & (g[:, 1] >= 0) & (g[:, 1] <= h - 1)
+    return g, ok & inside & valid

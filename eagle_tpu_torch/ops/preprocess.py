@@ -1,6 +1,6 @@
 """Image preprocessing: working-canvas geometry, the host 4:2:0 prescale,
-the BT.601 inverse on the device, and the keypoint model's resize +
-normalisation.
+the BT.601 inverse on the device (and OpenCV's exact fixed-point one), and
+the keypoint model's resize + normalisation.
 
 PyTorch counterpart of ``eagle_tpu/ops/preprocess.py``.  Frames are NHWC
 uint8 BGR at every public function, as in the JAX package; resizes are two
@@ -213,11 +213,42 @@ def _yuv_planes_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> tor
     return torch.clamp(torch.round(bgr), 0.0, 255.0).to(torch.uint8)
 
 
-def i420_to_bgr(planes: torch.Tensor) -> torch.Tensor:
-    """Packed I420 planes (N, H*3//2, W) uint8 -> BGR uint8 (N, H, W, 3)."""
+def _split_i420(planes: torch.Tensor, dtype: torch.dtype):
+    """Packed I420 (N, H*3//2, W) -> Y (N, H, W), U, V (N, H/2, W/2) as ``dtype``."""
     n, h15, w = planes.shape
     h = h15 * 2 // 3
-    y = planes[:, :h].to(torch.float32)
-    u = planes[:, h : h + h // 4].reshape(n, h // 2, w // 2).to(torch.float32)
-    v = planes[:, h + h // 4 :].reshape(n, h // 2, w // 2).to(torch.float32)
-    return _yuv_planes_to_bgr(y, u, v)
+    y = planes[:, :h].to(dtype)
+    u = planes[:, h : h + h // 4].reshape(n, h // 2, w // 2).to(dtype)
+    v = planes[:, h + h // 4 :].reshape(n, h // 2, w // 2).to(dtype)
+    return y, u, v
+
+
+def i420_to_bgr(planes: torch.Tensor) -> torch.Tensor:
+    """Packed I420 planes (N, H*3//2, W) uint8 -> BGR uint8 (N, H, W, 3)."""
+    return _yuv_planes_to_bgr(*_split_i420(planes, torch.float32))
+
+
+#: OpenCV's fixed-point BT.601 coefficients (ITUR_BT_601_*, 20-bit shift)
+_CV_CY, _CV_CUB, _CV_CUG, _CV_CVG, _CV_CVR = 1220542, 2116026, -409993, -852492, 1673527
+
+
+def i420_to_bgr_exact(planes: torch.Tensor) -> torch.Tensor:
+    """Packed I420 planes (N, H*3//2, W) uint8 -> BGR uint8 (N, H, W, 3),
+    byte for byte as OpenCV's ``cvtColor(COLOR_YUV2BGR_I420)`` decodes
+    them, on any device.  OpenCV's fixed-point formula in int32:
+
+        y = max(0, Y - 16) * CY + 2^19,  u, v centred on 128,
+        B = (y + CUB u) >> 20,  G = (y + CVG v + CUG u) >> 20,  R = (y + CVR v) >> 20,
+
+    with nearest 2x2 chroma upsampling and each result saturated to
+    [0, 255].  The largest intermediate, ~5.1e8, stays below 2^31."""
+    y, u, v = _split_i420(planes, torch.int32)
+    n, h, w = y.shape
+
+    def up2(c):
+        return (c - 128)[:, :, None, :, None].expand(n, h // 2, 2, w // 2, 2).reshape(n, h, w)
+
+    u, v = up2(u), up2(v)
+    yy = torch.clamp(y - 16, min=0) * _CV_CY + (1 << 19)
+    bgr = torch.stack([yy + _CV_CUB * u, yy + _CV_CVG * v + _CV_CUG * u, yy + _CV_CVR * v], dim=-1)
+    return torch.clamp(bgr >> 20, 0, 255).to(torch.uint8)

@@ -48,6 +48,7 @@ from eagle_tpu_torch.ops.preprocess import (
     compute_work_geometry,
     host_letterbox_i420,
     i420_to_bgr,
+    i420_to_bgr_exact,
     letterbox,
     normalize_imagenet,
     preprocess_keypoint,
@@ -187,6 +188,11 @@ class CoordinateModel:
         """Host prescale + upload: (N, H, W, 3) uint8 BGR -> the device
         frames every stage consumes ((N, canvas_h, canvas_w, 3) uint8 BGR
         on the working path, the raw frames otherwise)."""
+        return self._upload(frames, geom)[0]
+
+    def _upload(self, frames: np.ndarray, geom: WorkGeometry) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """:meth:`upload`, plus the uploaded packed 4:2:0 planes on the
+        working path (None otherwise)."""
         fmt = resolve_upload_format(self.config.upload_format, geom.enabled)
         if self.config.prescale != "host":
             raise NotImplementedError("only the host prescale is ported (PipelineConfig.prescale)")
@@ -196,11 +202,11 @@ class CoordinateModel:
                     "the working-resolution path ships 4:2:0 planes; upload_format='bgr' "
                     "with a working geometry (a cv2 letterbox) is not ported"
                 )
-            planes = host_letterbox_i420(frames, geom)
-            return i420_to_bgr(torch.from_numpy(planes).to(self.device))
+            planes = torch.from_numpy(host_letterbox_i420(frames, geom)).to(self.device)
+            return i420_to_bgr(planes), planes
         if fmt == "yuv420":
             raise NotImplementedError("4:2:0 transport of raw-resolution frames is not ported")
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device), None
 
     @torch.no_grad()
     def run_keypoints(self, x: torch.Tensor, geom: WorkGeometry, img_hw) -> torch.Tensor:
@@ -309,9 +315,9 @@ class CoordinateModel:
         h_interval = max(1, int(fps / max(1, num_homography)))
 
         with timer("prescale"):
-            dev_frames = None
+            dev_frames = planes = None
             if not (self._custom_kp and self._custom_det):
-                dev_frames = self.upload(frames, geom)
+                dev_frames, planes = self._upload(frames, geom)
 
         with timer("detector"):
             det_rows = []
@@ -341,13 +347,18 @@ class CoordinateModel:
                 dev_frames = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
 
         # first-frame seeding: backward flow from the first sampled frame
-        # with >= 4 keypoints
+        # with >= 4 keypoints.  On the 4:2:0 path the reference flows over
+        # OpenCV's decode of the planes (its host copies), not over the
+        # device canvas, so the planes are decoded here as OpenCV does
         with timer("temporal"):
             if mem_valid[0].sum() < 4:
                 found = next((j for j in sampled if mem_valid[j].sum() >= 4), None)
                 if found:
+                    seed_frames = dev_frames[: found + 1]
+                    if planes is not None:
+                        seed_frames = i420_to_bgr_exact(planes[: found + 1])
                     seed_xy, seed_ok = temporal.backward_seed(
-                        dev_frames[: found + 1],
+                        seed_frames,
                         torch.from_numpy(mem_kp[found, :, :2]).to(dev),
                         torch.from_numpy(mem_valid[found]).to(dev),
                         cfg,
@@ -357,6 +368,7 @@ class CoordinateModel:
                         take = seed_ok[j] & ~mem_valid[j]
                         mem_kp[j, take, :2] = seed_xy[j, take]
                         mem_valid[j] |= seed_ok[j]
+            planes = None  # seeding was the planes' last reader
 
         gumbel_cache: dict[int, torch.Tensor] = {}
 

@@ -24,7 +24,9 @@ import os
 import subprocess
 import sys
 
+import cv2
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -32,9 +34,13 @@ import torch
 from eagle_tpu.config import DEFAULT_CONFIG as JCFG
 from eagle_tpu.models import hrnet as jh
 from eagle_tpu.models import yolov8 as jy
+from eagle_tpu.ops.preprocess import compute_work_geometry as jgeometry
+from eagle_tpu.pipeline import temporal as jt
 from eagle_tpu.pipeline.coordinate_model import CoordinateModel as JModel
 from eagle_tpu.utils.synthetic import make_scene
 from eagle_tpu_torch.config import DEFAULT_CONFIG as TCFG
+from eagle_tpu_torch.ops.preprocess import host_letterbox_i420
+from eagle_tpu_torch.pipeline import temporal as tt
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel as TModel
 
 from .oracles import oracle_detector_fn, oracle_keypoint_fn
@@ -138,6 +144,30 @@ def test_backward_seed_and_on_demand_rounds_match_jax():
     assert len(got[9]["Keypoints"]) >= 4, "the flagged frames get model keypoints"
 
 
+def _reduced_cfg(base):
+    """The built-in-model tests' configuration: YOLOv8-m at a 160-px canvas,
+    HRNet at 96x160, float32, and the homography off (``min_points`` above
+    57; see test_builtin_models_slice_matches_jax)."""
+    return base.replace(
+        detector=dataclasses.replace(base.detector, variant="medium", image_size=160, use_bf16=False),
+        keypoint=dataclasses.replace(base.keypoint, input_hw=(96, 160), use_bf16=False),
+        homography=dataclasses.replace(base.homography, min_points=58),
+    )
+
+
+def _bridged_params():
+    """Seeded HRNet-W48 and YOLOv8-m parameter pytrees of the JAX package,
+    with signal-preserving weights (tests/torch_parity.py)."""
+    rng = np.random.default_rng(0)
+    kp_params = spread_params(jax.eval_shape(lambda: jh.init_params(jax.random.key(0))), rng)
+    det_shapes = jax.eval_shape(lambda: jy.init_params(jax.random.key(1), variant="m", num_classes=5))
+    return kp_params, spread_params(det_shapes, rng, gain=1.0)
+
+
+def _small_scene():
+    return make_scene(num_frames=8, width=320, height=192, num_players=4, fps=8, seed=5)
+
+
 def test_builtin_models_slice_matches_jax():
     """(b) Built-in HRNet-W48 and YOLOv8-m with the same weights (JAX
     pytrees, bridged into the port) on the working-resolution path at a
@@ -151,28 +181,68 @@ def test_builtin_models_slice_matches_jax():
     hypothesis for another one with the same number of inliers.  So the
     homography is switched off here (``min_points`` above 57), and the
     homography path is held by the oracle tests above."""
-    sc = make_scene(num_frames=8, width=320, height=192, num_players=4, fps=8, seed=5)
-    rng = np.random.default_rng(0)
-    kp_params = spread_params(jax.eval_shape(lambda: jh.init_params(jax.random.key(0))), rng)
-    det_shapes = jax.eval_shape(lambda: jy.init_params(jax.random.key(1), variant="m", num_classes=5))
-    det_params = spread_params(det_shapes, rng, gain=1.0)
-
-    def cfg_of(base):
-        return base.replace(
-            detector=dataclasses.replace(base.detector, variant="medium", image_size=160, use_bf16=False),
-            keypoint=dataclasses.replace(base.keypoint, input_hw=(96, 160), use_bf16=False),
-            homography=dataclasses.replace(base.homography, min_points=58),
-        )
-
+    sc = _small_scene()
+    kp_params, det_params = _bridged_params()
     kw = dict(num_keypoint_detection=2)
     want = JModel(
-        config=cfg_of(JCFG), keypoint_params=kp_params, detector_params=det_params, verbose_init=False
+        config=_reduced_cfg(JCFG), keypoint_params=kp_params, detector_params=det_params, verbose_init=False
     ).get_coordinates(sc.frames, sc.fps, verbose=False, **kw)
-    model = TModel(config=cfg_of(TCFG), keypoint_params=kp_params, detector_params=det_params, device="cpu")
+    model = TModel(config=_reduced_cfg(TCFG), keypoint_params=kp_params, detector_params=det_params, device="cpu")
     assert model._geometry((192, 320)).enabled
     got = model.get_coordinates(sc.frames, sc.fps, **kw)
     n_obj = assert_coords_match(got, want, boundary_atol=5e-2)
     assert n_obj > 20 and sum(len(fr["Keypoints"]) for fr in got.values()) > 20
+
+
+def test_backward_seed_flows_over_the_cv2_decode(monkeypatch):
+    """(b) On the working-geometry (4:2:0) path the backward seed flows
+    over OpenCV's decode of the uploaded planes -- what the reference
+    seeds over, its host copies decoded by cv2 -- and seeds what the JAX
+    package's ``backward_seed`` seeds on those frames.  Frame 0's model
+    keypoints are cut below 4, so the seed runs from the next cadence
+    frame.  Bit-equal frames, masks and (integer) positions."""
+    sc = _small_scene()
+    kp_params, det_params = _bridged_params()
+    model = TModel(config=_reduced_cfg(TCFG), keypoint_params=kp_params, detector_params=det_params, device="cpu")
+    keypoints_at = model._keypoints_at
+
+    def frame0_barren(idx, *args):
+        rows = keypoints_at(idx, *args)
+        if 0 in idx:
+            rows[idx.index(0), :, 3] = 0.0
+        return rows
+
+    seen = {}
+
+    def spy(frames, seed_xy, seed_valid, cfg):
+        out = real_seed(frames, seed_xy, seed_valid, cfg)
+        seen.update(frames=frames.numpy(), xy=seed_xy.numpy(), valid=seed_valid.numpy(), cfg=cfg,
+                    out=[o.numpy() for o in out])
+        return out
+
+    real_seed = tt.backward_seed
+    monkeypatch.setattr(model, "_keypoints_at", frame0_barren)
+    monkeypatch.setattr(tt, "backward_seed", spy)
+    model.get_coordinates(sc.frames, sc.fps, num_keypoint_detection=2)
+    assert seen, "frame 0 has no keypoints: the backward seed must run"
+    geom = model._geometry((192, 320))
+    planes = host_letterbox_i420(sc.frames[: len(seen["frames"])], geom)
+    cv2_frames = np.stack([cv2.cvtColor(p, cv2.COLOR_YUV2BGR_I420) for p in planes])
+    np.testing.assert_array_equal(seen["frames"], cv2_frames)
+
+    jgeom = jgeometry((192, 320), 160)
+    assert dataclasses.asdict(jgeom) == dataclasses.asdict(seen["cfg"].work)
+    want_xy, want_valid = (
+        np.asarray(a)
+        for a in jt.backward_seed(
+            jnp.asarray(cv2_frames), jnp.asarray(seen["xy"]), jnp.asarray(seen["valid"]),
+            _reduced_cfg(JCFG).replace(work=jgeom),
+        )
+    )
+    got_xy, got_valid = seen["out"]
+    np.testing.assert_array_equal(got_valid, want_valid)
+    assert want_valid[:-1].sum() >= 4, "the seed must reach the earlier frames"
+    np.testing.assert_array_equal(got_xy[got_valid], want_xy[want_valid])
 
 
 def test_default_device_is_the_card_without_fallback():

@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the CUDA flow kernel against its plain
-version, its input checks and its launch count.
+"""PyTorch port on the card: the fused CUDA flow kernel against its plain
+version, its one launch a call, its input checks and its launch count.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -10,6 +10,8 @@ imports JAX):
 Without a card every test skips.  Tolerances: status bit-equal; positions
 within 1e-2 px on tracked points (the bar tests/test_pallas_flow.py sets
 between the JAX package's two flow engines)."""
+
+import json
 
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ def _frames(hw=(544, 960), pan=3, seed=0):
     rng = np.random.default_rng(seed)
     tex = gaussian_filter(rng.normal(size=(h + 8, w + 8, 3)), (2.0, 2.0, 0))
     tex = np.clip(128 + 40 * tex / tex.std(), 0, 255).astype(np.uint8)
-    return tex[4 : 4 + h, 4 : 4 + w], tex[5 : 5 + h, 4 + pan : 4 + pan + w]
+    return np.ascontiguousarray(tex[4 : 4 + h, 4 : 4 + w]), np.ascontiguousarray(tex[5 : 5 + h, 4 + pan : 4 + pan + w])
 
 
 def _points(k, hw=(544, 960), seed=1):
@@ -46,12 +48,24 @@ def _points(k, hw=(544, 960), seed=1):
     return np.concatenate([border, rand]).astype(np.float32)[:k]
 
 
-@pytest.mark.parametrize("k", [1, 57, 240])
-def test_kernel_matches_plain(dev, k):
-    prev, curr = (torch.from_numpy(f).to(dev) for f in _frames())
-    pts = torch.from_numpy(_points(k)).to(dev)
+def _case(dev, k, hw=(544, 960)):
+    prev, curr = (torch.from_numpy(f).to(dev) for f in _frames(hw))
+    pts = torch.from_numpy(_points(k, hw)).to(dev)
     valid = torch.ones(k, dtype=torch.bool, device=dev)
     valid[k // 2] = False
+    return prev, curr, pts, valid
+
+
+# 544x960: the working canvas (K = 57 keypoints, 240 features-GMC
+# corners); 720x1280: raw frames on the identity geometry; 100x160: a frame
+# whose ROI side (100) is under 192, so the TMA boxes run past the ROI and,
+# for ROIs at the right edge, past the frame (a 148-wide frame would fail
+# the 16-byte row pitch: test_kernel_checks_its_inputs)
+@pytest.mark.parametrize(
+    "hw,k", [((544, 960), 1), ((544, 960), 57), ((544, 960), 240), ((720, 1280), 57), ((100, 160), 57)]
+)
+def test_kernel_matches_plain(dev, hw, k):
+    prev, curr, pts, valid = _case(dev, k, hw)
     before = of.launches
     kp, ks = of.lk_flow(prev, curr, pts, valid)
     pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
@@ -63,18 +77,48 @@ def test_kernel_matches_plain(dev, k):
     np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
 
 
+def test_one_device_kernel_per_call(dev, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    prev, curr, pts, valid = _case(dev, 57)
+    of.lk_flow(prev, curr, pts, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        of.lk_flow(prev, curr, pts, valid)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert [e["cat"] for e in ops] == ["kernel"], [e["name"] for e in ops]
+    assert "lk_flow_fused" in ops[0]["name"]
+
+
 def test_kernel_checks_its_inputs(dev):
-    prev, curr = (torch.from_numpy(f).to(dev) for f in _frames())
-    pts = torch.from_numpy(_points(8)).to(dev)
-    side = of.roi_side(*prev.shape[:2])
-    origin = of.roi_origins(pts, *prev.shape[:2], side, 2)
-    pyr = of.roi_pyramids(prev, curr, origin, side, 2)
+    prev, curr, pts, valid = _case(dev, 8)
     before = of.launches
     with pytest.raises(ValueError, match="CUDA"):
-        of.lk_flow_engine_cuda(pyr.cpu(), origin.cpu(), pts.cpu(), side, 2)
+        of.lk_flow_cuda(prev.cpu(), curr.cpu(), pts.cpu(), valid.cpu())
+    with pytest.raises(ValueError, match="prev_bgr"):  # frames on another device than the points
+        of.lk_flow_cuda(prev.cpu(), curr, pts, valid)
+    with pytest.raises(ValueError, match="pts"):
+        of.lk_flow_cuda(prev, curr, pts.double(), valid)
+    with pytest.raises(ValueError, match="valid"):
+        of.lk_flow_cuda(prev, curr, pts, valid.to(torch.uint8))
+    with pytest.raises(ValueError, match="curr_bgr"):
+        of.lk_flow_cuda(prev, curr.float(), pts, valid)
+    with pytest.raises(ValueError, match="pts"):
+        of.lk_flow_cuda(prev, curr, torch.zeros(8, 3, device=dev), valid)
+    with pytest.raises(ValueError, match="curr_bgr"):
+        of.lk_flow_cuda(prev, curr[:-1], pts, valid)
+    with pytest.raises(ValueError, match="curr_bgr"):  # not contiguous
+        of.lk_flow_cuda(prev, curr.transpose(0, 1).contiguous().transpose(0, 1), pts, valid)
+    with pytest.raises(ValueError, match="pitch"):  # 3 * 148 = 444 B rows
+        narrow = prev[:, :148].contiguous()
+        of.lk_flow_cuda(narrow, narrow.clone(), pts, valid)
+    with pytest.raises(ValueError, match="pitch"):  # a base address off the 16-B grid
+        flat = torch.empty(prev.numel() + 1, dtype=torch.uint8, device=dev)
+        shifted = flat[1:].view(prev.shape)
+        of.lk_flow_cuda(shifted, curr, pts, valid)
     with pytest.raises(ValueError, match="odd window"):
-        of.lk_flow_engine_cuda(pyr, origin, pts, side, 2, window=16)
-    with pytest.raises(ValueError, match="pyramid"):
-        of.lk_flow_engine_cuda(pyr[:-1], origin, pts, side, 2)
+        of.lk_flow_cuda(prev, curr, pts, valid, window=16)
     assert of.launches == before
-

@@ -1,11 +1,13 @@
 """PyTorch port, preprocessing: the 4:2:0 host prescale, the BT.601
 inverse, the gray conversion and the keypoint/detector resizes against the
-JAX package on the same seeded inputs.
+JAX package on the same seeded inputs; OpenCV's exact 4:2:0 decode against
+cv2 itself.
 
-Tolerances: the prescale bytes, the I420 -> BGR bytes and the flow gray
-are bit-equal; the float resizes agree to 1e-5 (the same interpolation
-matrices, summed in another order)."""
+Tolerances: the prescale bytes, the I420 -> BGR bytes (both decodes) and
+the flow gray are bit-equal; the float resizes agree to 1e-5 (the same
+interpolation matrices, summed in another order)."""
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from eagle_tpu.ops import preprocess as jp
 from eagle_tpu.ops.optical_flow import _GRAY_W
+from eagle_tpu.utils.synthetic import make_scene
 from eagle_tpu_torch.config import WorkGeometry
 from eagle_tpu_torch.ops import preprocess as tp
 from eagle_tpu_torch.ops.optical_flow import bgr_to_gray
@@ -26,6 +29,26 @@ torch.set_num_threads(2)
 def test_i420_to_bgr_bit_equal(shape):
     planes = np.random.default_rng(0).integers(0, 256, shape, np.uint8)
     np.testing.assert_array_equal(n(tp.i420_to_bgr(t(planes))), n(jp.i420_to_bgr(jnp.asarray(planes))))
+
+
+def _cv2_i420(planes: np.ndarray) -> np.ndarray:
+    return np.stack([cv2.cvtColor(p, cv2.COLOR_YUV2BGR_I420) for p in planes])
+
+
+@pytest.mark.parametrize("shape", [(2, 96 * 3 // 2, 128), (2, 544 * 3 // 2, 960)])
+def test_i420_to_bgr_exact_matches_cv2_on_random_planes(shape):
+    """Random planes put the chroma far outside video range, where the
+    float BT.601 inverse is up to 19 off cv2."""
+    planes = np.random.default_rng(4).integers(0, 256, shape, np.uint8)
+    np.testing.assert_array_equal(n(tp.i420_to_bgr_exact(t(planes))), _cv2_i420(planes))
+
+
+def test_i420_to_bgr_exact_matches_cv2_on_canvases():
+    """The working canvases the slice uploads: 720p broadcast-like frames
+    through the native 4:2:0 letterbox to 544x960."""
+    frames = make_scene(num_frames=4, width=1280, height=720, num_players=6, seed=3).frames
+    planes = tp.host_letterbox_i420(frames, tp.compute_work_geometry((720, 1280), 960))
+    np.testing.assert_array_equal(n(tp.i420_to_bgr_exact(t(planes))), _cv2_i420(planes))
 
 
 def test_gray_bit_equal():
