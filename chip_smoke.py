@@ -16,7 +16,9 @@ Phases (any failure exits non-zero, nothing is caught):
    events), and the bound;
 3. reference: the slice on the card against the port's plain CPU path on
    a 12-frame clip with oracle models that know the clip's geometry, and
-   the tracked keypoints against the true landmark pixels;
+   the tracked keypoints against the true landmark pixels; then the same
+   with calibration on (the brightness snap moves the keypoints that lie
+   on dim grass), card against CPU again;
 4. slice: ``CoordinateModel(device="cuda").get_coordinates`` on 48 frames
    of 1280x720 at 24 fps with seeded full-width YOLOv8-l (960) and
    HRNet-W48 (540x960) in bfloat16, the YOLO class bias tuned to a
@@ -24,7 +26,20 @@ Phases (any failure exits non-zero, nothing is caught):
    before and read just after, and every kernel must have launched; the
    output must hold one dict per frame with the four keys; the bf16
    models must agree with their float32 selves on one batch;
-5. with ``--profile``: one more run of the slice (24 frames) under
+5. process: the CLI's function (``eagle_tpu_torch.main.run``) from 48
+   host frames of a match (the slice's frames with 22 players in two kits
+   and a ball drawn over them, oracle models that know them) to the four
+   JSON files in a temporary directory, on the card: ``get_coordinates``,
+   then the ``Processor`` with its team votes on the card; the launch
+   counters are zeroed just before and read just after; the run's votes
+   must equal the plain CPU votes on the same crops bit for bit, the team
+   mapping, the table and the formatted records must equal the port's CPU
+   Processor's on the same coordinates, and the mapping must split the
+   players by kit; the files must parse back to them.  Prints the
+   Processor's stage milliseconds and the frames-to-files rate.  The
+   card's machine has no OpenCV, so decoding an .mp4, rendering and
+   annotated.mp4 are not run;
+6. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, summarised per stage (device busy and idle share,
    host time blocked in synchronising calls) into the given JSON file.
 
@@ -79,6 +94,12 @@ REF_BOUNDARY_ATOL = 1e-2
 REF_TRUTH_PX = 6.0
 #: frames of the profiled run (--profile)
 PROFILE_FRAMES = 24
+#: the process phase's match (make_match): outfield players a team, drawn
+#: in the two kits of the JAX package's synthetic scenes (BGR red and
+#: blue), plus one goalkeeper a team (yellow, purple)
+MATCH_PLAYERS = 10
+KITS = [(40, 40, 215), (200, 140, 30)]
+GK_KITS = [(30, 220, 230), (150, 40, 150)]
 #: detections a frame kept at the detector's keep threshold that the
 #: seeded YOLO's class bias is tuned to: a broadcast frame shows about 20
 #: outfield players, the goalkeepers, 2-3 referees and the ball
@@ -357,12 +378,13 @@ def phase_kernel(frames, pts):
     }
 
 
-def oracle_models(frames, pts):
+def oracle_models(frames, pts, people=None):
     """``keypoint_fn`` / ``detector_fn`` that know the clip: the on-plane
     pitch landmarks in view, placed by a fixed broadcast-like world ->
     image homography of frame 0 (the near touchline spans x 20-85 m across
-    the width, the far one is narrower) and panned with the frames, and six
-    players standing still on the pitch.  Returns (keypoint_fn,
+    the width, the far one is narrower) and panned with the frames, and
+    ``people`` = (boxes (n, P, 4) image pixels, classes (P,)), by default
+    six players standing still on the pitch.  Returns (keypoint_fn,
     detector_fn, truth (n, 57, 2) pixels of the landmarks in view, NaN for
     the others)."""
     from eagle_tpu_torch import pitch
@@ -379,7 +401,13 @@ def oracle_models(frames, pts):
     seen &= pitch.ON_PLANE_MASK
     truth[:, ~seen] = np.nan
     index = {frames[i].tobytes(): i for i in range(len(frames))}
-    feet = np.array([[300, 200], [520, 420], [700, 300], [900, 600], [400, 650], [1100, 380]], float)
+    if people is None:
+        feet = np.array([[300, 200], [520, 420], [700, 300], [900, 600], [400, 650], [1100, 380]], float)
+        x = feet[None, :, 0] - offs[:, None]
+        y = np.broadcast_to(feet[None, :, 1], x.shape)
+        people = (np.stack([x - 15, y - 70, x + 15, y], -1).astype(np.float32), np.zeros(len(feet), np.int32))
+    people_boxes, people_cls = people
+    p = len(people_cls)
 
     def keypoint_fn(batch):
         idx = [index[f.tobytes()] for f in batch]
@@ -392,12 +420,12 @@ def oracle_models(frames, pts):
         idx = [index[f.tobytes()] for f in batch]
         b = len(idx)
         boxes = np.zeros((b, 128, 4), np.float32)
+        cls = np.zeros((b, 128), np.int32)
         valid = np.zeros((b, 128), bool)
-        for r, i in enumerate(idx):
-            x = feet[:, 0] - offs[i]
-            boxes[r, : len(feet)] = np.stack([x - 15, feet[:, 1] - 70, x + 15, feet[:, 1]], -1)
-            valid[r, : len(feet)] = True
-        return boxes, np.where(valid, 0.9, 0.0).astype(np.float32), np.zeros((b, 128), np.int32), valid
+        boxes[:, :p] = people_boxes[idx]
+        cls[:, :p] = people_cls
+        valid[:, :p] = True
+        return boxes, np.where(valid, 0.9, 0.0).astype(np.float32), cls, valid
 
     return keypoint_fn, detector_fn, truth
 
@@ -436,7 +464,8 @@ def phase_reference(frames, pts):
     clip (raw 1280x720 frames, the oracle models of :func:`oracle_models`):
     the two dicts agree within the REF_* tolerances, and every reported
     keypoint of a landmark in view lies within REF_TRUTH_PX of its true
-    pixel (points synthesized beyond the view are extrapolations)."""
+    pixel (points synthesized beyond the view are extrapolations).  Then
+    with calibration on: card and CPU agree, and the snap moved keypoints."""
     from eagle_tpu_torch import pitch
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 
@@ -462,6 +491,25 @@ def phase_reference(frames, pts):
           f">= {n_players} players tracked per frame")
     if not (max(errs) <= REF_TRUTH_PX and n_h == len(clip) and n_players == 6):
         fail("the slice on the small reference clip lost keypoints, the homography or the players")
+
+    cal = {}
+    for dev in ("cuda", "cpu"):
+        kp_fn, det_fn, _ = oracle_models(clip, pts)
+        model = CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
+        cal[dev] = model.get_coordinates(clip, FPS, num_keypoint_detection=6, calibration=True)
+    bad = coords_mismatch(cal["cuda"], cal["cpu"])
+    if bad:
+        fail(f"the calibrated slice on the card differs from its plain CPU path: {bad}")
+    moved = sum(
+        xy != res["cuda"][i]["Keypoints"].get(name)
+        for i, fr in cal["cuda"].items()
+        for name, xy in fr["Keypoints"].items()
+    )
+    print(f"reference, calibration on: card == plain CPU path; {moved} of "
+          f"{sum(len(fr['Keypoints']) for fr in cal['cuda'].values())} reported keypoints differ from "
+          f"the uncalibrated run")
+    if moved == 0:
+        fail("calibration moved no keypoint of the reference clip")
 
 
 def phase_models_bf16(model, frames):
@@ -631,6 +679,167 @@ def phase_slice(frames):
     return launches, model
 
 
+def make_match(frames, seed: int = SEED):
+    """A match over the pitch frames of :func:`make_frames`: MATCH_PLAYERS
+    outfield players a team in KITS and one goalkeeper a team in GK_KITS,
+    on a jittered 6 x 4 grid of the pitch (no two boxes overlap), walking
+    up to 0.4 px a frame and panned with the camera, taller nearer the
+    camera (30 x 72 px at mid-frame); each is a kit-coloured torso over
+    narrow dark shorts under a skin-coloured head, so all four corners of
+    its box are grass; plus a ball.  Returns (frames, (boxes (n, P, 4)
+    float32 image pixels, classes (P,): 0 player, 1 goalkeeper, 2 ball),
+    team (P,) int: 0 or 1, -1 for the ball)."""
+    n, h, w, _ = frames.shape
+    rng = np.random.default_rng(seed + 1)
+    slots = [(x, y) for y in (250.0, 400.0, 550.0, 690.0) for x in (190.0, 390.0, 590.0, 790.0, 990.0, 1190.0)]
+    take = rng.permutation(len(slots))[: 2 * MATCH_PLAYERS + 2]
+    feet0 = np.array([slots[i] for i in take]) + rng.uniform([-20, -10], [20, 10], (len(take), 2))
+    vel = rng.uniform(-0.4, 0.4, (len(take), 2))
+    team = np.r_[np.arange(2 * MATCH_PLAYERS) % 2, [0, 1], [-1]]
+    cls = np.r_[np.zeros(2 * MATCH_PLAYERS, np.int32), [1, 1], [2]].astype(np.int32)
+    kits = [KITS[t] for t in team[: 2 * MATCH_PLAYERS]] + GK_KITS
+    offs = np.round(1.5 * np.arange(n))  # make_frames' pan
+    out = frames.copy()
+    boxes = np.zeros((n, len(cls), 4), np.float32)
+    for t in range(n):
+        img = out[t]
+        for k, (u, v) in enumerate(feet0 + vel * t):
+            u -= offs[t]
+            scale = 0.4 + 0.9 * v / h
+            bw, bh = 30 * scale, 72 * scale
+            x1, y1, x2, y2 = (int(round(c)) for c in (u - bw / 2, v - bh, u + bw / 2, v))
+            bw, bh = x2 - x1, y2 - y1
+            mid, quarter = (x1 + x2) // 2, max(1, bw // 5)
+            img[y1 : y1 + bh * 15 // 100, mid - quarter : mid + quarter] = (150, 190, 220)
+            img[y1 + bh * 15 // 100 : y1 + bh * 60 // 100, x1 + bw // 10 : x2 - bw // 10] = kits[k]
+            img[y1 + bh * 60 // 100 : y2, mid - quarter : mid + quarter] = (30, 30, 30)
+            boxes[t, k] = (x1, y1, x2, y2)
+        bx, by = 330 + 6.0 * t - offs[t], 330 + 2.0 * t
+        yy, xx = np.ogrid[:h, :w]
+        img[(xx - bx) ** 2 + (yy - by) ** 2 <= 16] = (250, 250, 250)
+        boxes[t, -1] = (bx - 5, by - 5, bx + 5, by + 5)
+    return out, (boxes, cls), team
+
+
+def true_teams(coords, boxes, team) -> dict:
+    """{track id: true team} for the reported players: each id's first box
+    matched to the drawn box it overlaps most (IoU over 0.5)."""
+    first = {}
+    for i, fr in coords.items():
+        for oid, it in fr["Coordinates"].get("Player", {}).items():
+            first.setdefault(oid, (i, it["BBox"]))
+    out = {}
+    for oid, (i, (x1, y1, x2, y2)) in first.items():
+        b = boxes[i]
+        iw = np.clip(np.minimum(b[:, 2], x2) - np.maximum(b[:, 0], x1), 0, None)
+        ih = np.clip(np.minimum(b[:, 3], y2) - np.maximum(b[:, 1], y1), 0, None)
+        inter = iw * ih
+        iou = inter / ((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) + (x2 - x1) * (y2 - y1) - inter)
+        if iou.max() > 0.5:
+            out[oid] = int(team[int(iou.argmax())])
+    return out
+
+
+def tables_equal(a, b) -> bool:
+    """Two Processor tables with equal columns, index and cells (NaN equal
+    to NaN)."""
+
+    def same(x, y):
+        if isinstance(x, float) and x != x:
+            return isinstance(y, float) and y != y
+        return type(x) is type(y) and x == y
+
+    return (
+        list(a.columns) == list(b.columns)
+        and a.index == b.index
+        and all(len(a[c]) == len(b[c]) and all(map(same, a[c], b[c])) for c in a.columns)
+    )
+
+
+def phase_process(frames, pts):
+    """The CLI's function on the card, frames to the four JSON files, on
+    the match of :func:`make_match` with oracle models: the launch counts
+    around it, the run's own votes against the plain CPU votes, the
+    mapping, the table and the records against the port's CPU Processor on
+    the same coordinates, the mapping against the drawn kits, the files
+    parsed back; the Processor's stage milliseconds and the frames-to-files
+    rate."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from eagle_tpu_torch.io.output import dumps_records
+    from eagle_tpu_torch.main import run
+    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
+    from eagle_tpu_torch.pipeline.processor import Processor
+
+    match, people, team = make_match(frames)
+    kp_fn, det_fn, _ = oracle_models(match, pts, people)
+    model = CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
+    with tempfile.TemporaryDirectory() as warm:  # the allocator, cuSOLVER's first batched eigh
+        run(match[:16], FPS, warm, model, annotated=False)
+    torch.cuda.synchronize()
+    timer = StageTimer(model.device, sync=True)
+    with tempfile.TemporaryDirectory() as out_dir:
+        optical_flow.launches = 0
+        t0 = time.perf_counter()
+        out = run(match, FPS, out_dir, model, annotated=False, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = optical_flow.launches
+        files = {}
+        for name in ("raw_coordinates.json", "raw_data.json", "metadata.json", "processed_data.json"):
+            with open(os.path.join(out_dir, name)) as f:
+                files[name] = json.load(f)
+    if launches < len(match) - 1:
+        fail(f"lk_flow kernel launched {launches} times in the CLI run of {len(match)} frames")
+
+    coords, table, mapping, card = out["coordinates"], out["table"], out["team_mapping"], out["processor"]
+    cpu = Processor(coords, match, FPS, filter_ball_detections=False, device="cpu")
+    cpu_table, cpu_mapping = cpu.process_data()
+    if card.crop_entries != cpu.crop_entries:
+        fail("the card run voted on other crops than the CPU Processor")
+    if not np.array_equal(card.crop_votes, cpu.crop_votes):
+        bad = np.flatnonzero((card.crop_votes != cpu.crop_votes).any(1))
+        fail(f"team votes on the card differ from the CPU votes on crops {bad.tolist()[:20]}")
+    if mapping != cpu_mapping:
+        fail(f"team mapping on the card {mapping} differs from the CPU Processor's {cpu_mapping}")
+    if not tables_equal(table, cpu_table):
+        fail("the Processor's table on the card differs from the CPU Processor's")
+    if out["processed"] != cpu.format_data(cpu_table):
+        fail("the formatted records on the card differ from the CPU Processor's")
+    if (
+        files["raw_data.json"] != json.loads(dumps_records(table.records()))
+        or files["processed_data.json"] != json.loads(dumps_records(out["processed"]))
+        or files["metadata.json"] != {"fps": FPS, "team_mapping": {str(k): v for k, v in mapping.items()}}
+        or sorted(files["raw_coordinates.json"]) != sorted(str(k) for k in coords)
+    ):
+        fail("the JSON files do not parse back to the run's outputs")
+    truth = true_teams(coords, people[0], team)
+    pairs = {(mapping[pid], truth.get(pid)) for pid in mapping}
+    if (
+        len(mapping) < 2 * MATCH_PLAYERS
+        or sorted(set(mapping.values())) != [0, 1]
+        or len(pairs) != 2
+        or len({t for _, t in pairs} - {None}) != 2
+    ):
+        fail(f"the team mapping {mapping} does not split the {2 * MATCH_PLAYERS} players by kit "
+             f"(true teams of the ids: {truth})")
+
+    stages = {k: round(timer.seconds[k] * 1e3, 3) for k in ("crops", "votes", "table", "merge", "format", "json")}
+    perception = sum(v for k, v in timer.seconds.items() if k not in stages)
+    print(f"process: {len(match)} frames of a match with oracle models to the four JSON files in {wall:.3f} s = "
+          f"{len(match) / wall:.2f} fps (get_coordinates {perception * 1e3:.3f} ms, Processor and files "
+          f"{sum(stages.values()):.3f} ms); Processor stage ms {json.dumps(stages)}; lk_flow launches {launches}")
+    print(f"process: {len(card.crop_entries)} crops voted on the card == CPU votes; {len(mapping)} players in "
+          f"{len(set(mapping.values()))} teams, split by kit, mapping == CPU; table {len(table)} rows x "
+          f"{len(table.columns)} columns == CPU; {len(out['processed'])} formatted records")
+    if importlib.util.find_spec("cv2") is None:
+        print("process: no OpenCV on this machine: .mp4 decoding, rendering and annotated.mp4 not run")
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     total, end = 0.0, -np.inf
@@ -744,6 +953,7 @@ def main() -> int:
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
     flow["launches"], model = phase_slice(frames)
+    phase_process(frames, pts)
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -663,19 +663,20 @@ extern "C" int lk_flow_smem_bytes(int side, int levels, int window) {
   return make_layout(side, levels, window).total + kAlign;
 }
 
-// C interface for ctypes.  prev/curr: (h, w, 3) uint8 frames, 16-byte
-// aligned, 3w a multiple of 16; pts (k, 2) float32; valid (k,) bool;
+// C interface for ctypes.  prev/curr: h rows of w BGR uint8 pixels each,
+// 16-byte aligned, rows `pitch` bytes apart (a multiple of 16, at least 3w;
+// the bytes past 3w are never read); pts (k, 2) float32; valid (k,) bool;
 // out_g (k, 2) float32; out_status (k,) bool.  side: the ROI side
 // (roi_side(h, w), a multiple of 4, at most 192 so that a box's width and
 // a band's rows stay within TMA's 256 a dimension).  Launches one block
 // per point on `stream` and returns cudaGetLastError() (0 on success) or
 // one of the codes above.
-extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, int h, int w, const float* pts,
+extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, int h, int w, int pitch, const float* pts,
                                     const uint8_t* valid, float* out_g, uint8_t* out_status, int k, int side,
                                     int levels, int window, int iterations, float epsilon, void* stream) {
   if (k <= 0) return 0;
   if (levels < 0 || levels >= kMaxLevels || side < 4 || side > 192 || side % 4 != 0 || window < 1 ||
-      window * window > kMaxTaps * kThreads) {
+      window * window > kMaxTaps * kThreads || pitch < 3 * w || pitch % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(side, levels, window);
@@ -697,7 +698,7 @@ extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, in
   CUtensorMap maps[2];
   const uint8_t* frames[2] = {prev, curr};
   const cuuint64_t dims[2] = {(cuuint64_t)3 * w, (cuuint64_t)h};
-  const cuuint64_t strides[1] = {(cuuint64_t)3 * w};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
   const cuuint32_t box[2] = {(cuuint32_t)L.box_bytes, (cuuint32_t)L.band_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   for (int f = 0; f < 2; ++f) {

@@ -1,7 +1,8 @@
 // Host-side frame prescale: BGR -> packed I420 conversion and the
 // letterboxed working-canvas prescale, bit-exact clones of the cv2 ops
 // they replace (cv2.cvtColor COLOR_BGR2YUV_I420 and cv2.resize
-// INTER_LINEAR on uint8 planes).
+// INTER_LINEAR on uint8 planes); and the team-vote crops, cv2.resize
+// INTER_LINEAR of integer boxes of BGR frames (crops_linear_u8c3).
 //
 // Native counterpart of the reference's OpenCV dependency role
 // (SURVEY.md section 2.2: preprocessing / color-space ops, implemented in
@@ -197,13 +198,13 @@ struct LinearCoeffs {
                                 // is too large for 16-byte windows)
 };
 
-LinearCoeffs linear_coeffs(int dst, int src) {
+LinearCoeffs linear_coeffs(int dst, int src, double scale = 0.0) {
   LinearCoeffs c;
   c.s0.resize(dst);
   c.s1.resize(dst);
   c.a0.resize(dst);
   c.a1.resize(dst);
-  const double scale = (double)src / dst;
+  if (scale == 0.0) scale = (double)src / dst;
   for (int x = 0; x < dst; ++x) {
     // cv2 computes the fraction in FLOAT32 (resize.cpp: fx = (float)(...)),
     // which snaps values near the 0.5/2048 coefficient boundary -- e.g.
@@ -374,9 +375,105 @@ void letterbox_frame(const uint8_t* bgr, int h, int w, const Geom& g,
             cw / 2, rowbuf, [](int) {});
 }
 
+// cv2.resize(crop, (gw, gh), INTER_LINEAR) of one 3-channel uint8 crop
+// (sh rows of sw pixels, source row stride src_stride bytes) into a
+// contiguous (gh, gw, 3) destination, byte-identical to OpenCV:
+//  - the same size is a copy;
+//  - an exact 2x downscale in both axes is cv2's INTER_AREA fast path,
+//    (a + b + c + d + 2) >> 2 per channel (cv2 switches INTER_LINEAR to it);
+//  - otherwise cv2's fixed-point linear path, scalar: horizontal taps
+//    clamped into the row (coefficients too, as cv2 does), vertical
+//    coefficients from the UNclamped fraction with only the row indices
+//    clamped (cv2 clips the source rows, not the weights), and the
+//    vectorized vertical descale.  Every step is exact integer arithmetic,
+//    so any row width gives cv2's bytes.
+void crop_linear_u8c3(const uint8_t* src, int sh, int sw, int64_t src_stride,
+                      int gh, int gw, uint8_t* dst,
+                      std::vector<int32_t>& rowbuf) {
+  if (sh == gh && sw == gw) {
+    for (int y = 0; y < gh; ++y)
+      std::memcpy(dst + (int64_t)y * gw * 3, src + y * src_stride,
+                  (size_t)gw * 3);
+    return;
+  }
+  if (sh == 2 * gh && sw == 2 * gw) {
+    for (int y = 0; y < gh; ++y) {
+      const uint8_t* r0 = src + (int64_t)(2 * y) * src_stride;
+      const uint8_t* r1 = r0 + src_stride;
+      uint8_t* d = dst + (int64_t)y * gw * 3;
+      for (int x = 0; x < gw * 3; ++x) {
+        const int j = (x / 3) * 6 + x % 3;
+        d[x] = (uint8_t)((r0[j] + r0[j + 3] + r1[j] + r1[j + 3] + 2) >> 2);
+      }
+    }
+    return;
+  }
+  // cv2 derives the scale from the inverse ratio dst / src
+  const LinearCoeffs cx = linear_coeffs(gw, sw, 1.0 / ((double)gw / sw));
+  std::vector<int32_t> ys0(gh), ys1(gh), yb0(gh), yb1(gh);
+  const double scale_y = 1.0 / ((double)gh / sh);
+  for (int y = 0; y < gh; ++y) {
+    float fy = (float)((y + 0.5) * scale_y - 0.5);
+    const int sy = (int)std::floor(fy);
+    fy -= sy;
+    ys0[y] = sy < 0 ? 0 : (sy > sh - 1 ? sh - 1 : sy);
+    ys1[y] = sy + 1 < 0 ? 0 : (sy + 1 > sh - 1 ? sh - 1 : sy + 1);
+    yb1[y] = (int32_t)std::nearbyintf(fy * 2048.f);
+    yb0[y] = (int32_t)std::nearbyintf((1.f - fy) * 2048.f);
+  }
+  const int row = gw * 3;
+  rowbuf.resize(2 * (size_t)row);
+  int32_t* hr[2] = {rowbuf.data(), rowbuf.data() + row};
+  auto hresize = [&](int sy, int32_t* d) {
+    const uint8_t* s = src + sy * src_stride;
+    for (int x = 0; x < gw; ++x) {
+      const uint8_t* p0 = s + 3 * cx.s0[x];
+      const uint8_t* p1 = s + 3 * cx.s1[x];
+      for (int c = 0; c < 3; ++c) d[3 * x + c] = p0[c] * cx.a0[x] + p1[c] * cx.a1[x];
+    }
+  };
+  for (int y = 0; y < gh; ++y) {
+    hresize(ys0[y], hr[0]);
+    hresize(ys1[y], hr[1]);
+    const int32_t b0 = yb0[y], b1 = yb1[y];
+    uint8_t* d = dst + (int64_t)y * row;
+    for (int x = 0; x < row; ++x) {
+      int32_t v = ((b0 * (hr[0][x] >> 4)) >> 16) + ((b1 * (hr[1][x] >> 4)) >> 16);
+      v = (v + 2) >> 2;
+      d[x] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Integer-box crops of uint8 BGR frames resized to (gh, gw) as
+// cv2.resize(frame[y1:y2, x1:x2], (gw, gh), INTER_LINEAR) gives them.
+// frames: one (h, w, 3) frame pointer per frame index; fidx (n,) and
+// boxes (n, 4) x1, y1, x2, y2 with 0 <= x1 < x2 <= w, 0 <= y1 < y2 <= h
+// (the caller checks both); out (n, gh, gw, 3).
+void crops_linear_u8c3(const uint8_t* const* frames, int32_t w,
+                       const int32_t* fidx, const int32_t* boxes, int32_t n,
+                       int32_t gh, int32_t gw, uint8_t* out, int32_t threads) {
+  const int64_t stride = (int64_t)w * 3;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(threads > 0 ? threads : 1) if (threads > 1)
+#endif
+  {
+    std::vector<int32_t> rowbuf;
+#ifdef _OPENMP
+#pragma omp for schedule(static)
+#endif
+    for (int32_t i = 0; i < n; ++i) {
+      const int32_t* b = boxes + 4 * (int64_t)i;
+      const uint8_t* src = frames[fidx[i]] + b[1] * stride + (int64_t)b[0] * 3;
+      crop_linear_u8c3(src, b[3] - b[1], b[2] - b[0], stride, gh, gw,
+                       out + (int64_t)i * gh * gw * 3, rowbuf);
+    }
+  }
+}
 
 // BGR uint8 (n, h, w, 3) -> packed I420 (n, h*3/2, w); even h, w.
 void bgr_to_i420(const uint8_t* bgr, uint8_t* out, int32_t n, int32_t h,

@@ -29,12 +29,19 @@ def hue(bgr: torch.Tensor) -> torch.Tensor:
     return bgr_to_hsv(bgr)[..., 0]
 
 
+def value(bgr: torch.Tensor) -> torch.Tensor:
+    """(..., 3) BGR -> (...,) float32 brightness (HSV V) = max channel."""
+    x = bgr.to(torch.float32)
+    return torch.maximum(torch.maximum(x[..., 0], x[..., 1]), x[..., 2])
+
+
 def extract_windows(
     frame: torch.Tensor, pts_xy_int: torch.Tensor, size: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed-size windows around integer points (x, y), start-clipped into
-    the image.  (H, W[, C]) frame -> (windows (K, size, size[, C]),
-    origins (K, 2) as (x, y)); callers mask cells against their ranges."""
+    the image.  (H, W[, C]) frame -- a colour frame or a 2-D map such as
+    :func:`value` of one -> (windows (K, size, size[, C]), origins (K, 2)
+    as (x, y)); callers mask cells against their ranges."""
     h, w = frame.shape[:2]
     half = size // 2
     x0 = torch.clamp(pts_xy_int[:, 0] - half, 0, max(0, w - size))

@@ -1,10 +1,16 @@
-"""Batched 8-state constant-velocity Kalman filter on (x, y, w, h) boxes
-with size-scaled noise (the ByteTrack / BoT-SORT formulation); PyTorch
-counterpart of the batched filter in ``eagle_tpu/ops/kalman.py``.  Every
-function takes a leading track axis."""
+"""Kalman filters (counterpart of ``eagle_tpu/ops/kalman.py``):
+
+1. a batched 8-state constant-velocity filter on (x, y, w, h) boxes with
+   size-scaled noise (the ByteTrack / BoT-SORT formulation) in torch;
+   every function takes a leading track axis;
+2. :class:`CvKalman2D`, the ball selector's sequential 4-state filter,
+   float32 numpy on the host: a faithful emulation of
+   ``cv2.KalmanFilter(4, 2)`` with its pre/post state semantics.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 STD_POS = 1.0 / 20.0
@@ -75,3 +81,40 @@ def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
 def xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     half = b[..., 2:] * 0.5
     return torch.cat([b[..., :2] - half, b[..., :2] + half], dim=-1)
+
+
+class CvKalman2D:
+    """Exact numpy emulation of cv2.KalmanFilter(4, 2) as the ball selector
+    configures it: F couples position and velocity with dt = 1, Q = 1e-5 I,
+    R = 1e-1 I, errorCovPost = I, statePre set directly.  cv2 zero-
+    initialises errorCovPre, so a correct() before any predict() leaves the
+    state unchanged, as in the reference."""
+
+    def __init__(self, initial_state, initial_velocity):
+        self.F = np.array([[1, 0, 1, 0], [0, 1, 0, 1], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+        self.H = np.array([[1, 0, 0, 0], [0, 1, 0, 0]], np.float32)
+        self.Q = np.eye(4, dtype=np.float32) * 1e-5
+        self.R = np.eye(2, dtype=np.float32) * 1e-1
+        self.state_pre = np.array(
+            [initial_state[0], initial_state[1], initial_velocity[0], initial_velocity[1]],
+            np.float32,
+        ).reshape(4, 1)
+        self.state_post = np.zeros((4, 1), np.float32)
+        self.p_pre = np.zeros((4, 4), np.float32)
+        self.p_post = np.eye(4, dtype=np.float32)
+
+    def predict(self) -> np.ndarray:
+        self.state_pre = self.F @ self.state_post
+        self.p_pre = self.F @ self.p_post @ self.F.T + self.Q
+        # cv2 copies pre -> post so chained predicts keep advancing
+        self.state_post = self.state_pre.copy()
+        self.p_post = self.p_pre.copy()
+        return self.state_pre
+
+    def correct(self, measurement: np.ndarray) -> np.ndarray:
+        z = np.asarray(measurement, np.float32).reshape(2, 1)
+        s = self.H @ self.p_pre @ self.H.T + self.R
+        k = self.p_pre @ self.H.T @ np.linalg.inv(s)
+        self.state_post = self.state_pre + k @ (z - self.H @ self.state_pre)
+        self.p_post = self.p_pre - k @ self.H @ self.p_pre
+        return self.state_post

@@ -29,12 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from eagle_tpu_torch.native import build_library
 
 # cv2 BGR -> gray coefficients (their float32 values)
 _GRAY_W = tuple(float(np.float32(v)) for v in (0.114, 0.587, 0.299))
@@ -265,19 +266,16 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/lk_flow.cu`` for sm_90a into the build directory
-    (when missing or older than the source) and return the library path;
-    raises with the compiler's output on failure."""
-    if os.path.exists(_CU_LIB) and os.path.getmtime(_CU_LIB) >= os.path.getmtime(_CU_SRC):
-        return _CU_LIB
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_CU_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, _CU_SRC]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_CU_SRC}:\n{r.stdout}\n{r.stderr}")
-    if verbose:
-        print(r.stdout + r.stderr)
-    os.replace(tmp, _CU_LIB)
+    (when missing or older than the source; under the build directory's
+    file lock, see :func:`eagle_tpu_torch.native.build_library`) and return
+    the library path; raises with the compiler's output on failure."""
+    out = build_library(
+        _CU_LIB,
+        _CU_SRC,
+        lambda tmp: [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, _CU_SRC],
+    )
+    if verbose and out:
+        print(out)
     return _CU_LIB
 
 
@@ -290,7 +288,7 @@ def _load():
             lib.lk_flow_smem_bytes.argtypes = [ctypes.c_int] * 3
             lib.lk_flow_fused_launch.restype = ctypes.c_int
             lib.lk_flow_fused_launch.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_void_p]
             )
             _lib = lib
@@ -306,8 +304,58 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device)
         )
 
 
+def _check_frame(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+    """A uint8 (H, W, 3) frame whose rows are dense (strides (pitch, 3, 1)
+    with pitch >= 3W): contiguous, or a view of a row-padded buffer."""
+    dense = t.dim() == 3 and t.stride(2) == 1 and t.stride(1) == 3 and t.stride(0) >= 3 * t.shape[1]
+    if t.device != device or t.dtype != torch.uint8 or tuple(t.shape) != shape or not dense:
+        raise ValueError(
+            f"lk_flow kernel: {name} must be a uint8 tensor of shape {shape} with dense rows on "
+            f"{device}; got {t.dtype} {tuple(t.shape)} with strides {t.stride()} on {t.device}"
+        )
+
+
 #: the C function's own error codes (csrc/lk_flow.cu), beside cudaError_t
 _ERR_NO_ENCODE, _ERR_SMEM, _ERR_ENCODE = -1, -2, -1000
+
+
+def _pitch(w: int) -> int:
+    """A frame row's 3W bytes rounded up to the 16 bytes TMA needs."""
+    return -(-3 * w // 16) * 16
+
+
+def upload_frames(frames: np.ndarray, device) -> torch.Tensor:
+    """(N, H, W, 3) uint8 host frames on ``device``.  On a CUDA device,
+    frames whose rows (3W bytes) are not a multiple of 16 bytes are laid
+    into a buffer with rows padded to :func:`_pitch`, and the (N, H, W, 3)
+    view of it is returned, so that the kernel reads every frame in place
+    (:func:`_pitched`) instead of staging a copy each flow step."""
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    dev = torch.device(device)
+    n, h, w, _ = x.shape
+    if dev.type != "cuda" or (3 * w) % 16 == 0:
+        return x.to(dev)
+    buf = torch.empty((n, h, _pitch(w)), dtype=torch.uint8, device=dev)
+    rows = buf[:, :, : 3 * w]
+    rows.copy_(x.view(n, h, 3 * w))
+    return rows.view(n, h, w, 3)
+
+
+def _pitched(frame: torch.Tensor, pitch: int | None = None) -> tuple[torch.Tensor, int]:
+    """(rows, pitch): the (H, W, 3) uint8 frame itself when its row stride
+    and base address are multiples of 16 bytes (a contiguous frame whose 3W
+    is, or a frame of :func:`upload_frames`) and the stride is ``pitch``
+    where one is asked for; else a copy in a fresh (H, pitch) buffer,
+    ``pitch`` defaulting to :func:`_pitch` (the allocator's blocks are
+    512-byte aligned)."""
+    h, w = frame.shape[:2]
+    stride = frame.stride(0)
+    if stride % 16 == 0 and frame.data_ptr() % 16 == 0 and pitch in (None, stride):
+        return frame, stride
+    pitch = pitch or _pitch(w)
+    rows = torch.empty((h, pitch), dtype=torch.uint8, device=frame.device)
+    rows[:, : 3 * w].view(h, w, 3).copy_(frame)
+    return rows, pitch
 
 
 def lk_flow_cuda(
@@ -322,10 +370,15 @@ def lk_flow_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The flow step as one launch of the CUDA kernel: (new_pts (K, 2)
     float32, status (K,) bool), as :func:`lk_flow_plain` computes them.
-    Takes contiguous CUDA tensors: two (H, W, 3) uint8 frames whose rows
-    (3W bytes) and base addresses are multiples of 16 bytes (TMA's
-    alignment), ``pts`` (K, 2) float32, ``valid`` (K,) bool; raises
-    ``ValueError`` on anything else, before launching."""
+    Takes CUDA tensors: two (H, W, 3) uint8 frames with dense rows
+    (contiguous, or views of a row-padded buffer), contiguous ``pts``
+    (K, 2) float32 and ``valid`` (K,) bool; raises ``ValueError`` on
+    anything else, before launching.  TMA needs 16-byte aligned rows of one
+    stride: a frame whose row stride or base address is not a multiple of
+    16 bytes (or whose stride differs from the other frame's) is first
+    copied into a buffer with rows padded to the next multiple of 16
+    (:func:`_pitched`); frames of :func:`upload_frames` need no copy.  The
+    kernel's tensor map takes the row stride."""
     global launches
     dev = pts.device
     if dev.type != "cuda":
@@ -334,22 +387,18 @@ def lk_flow_cuda(
         raise ValueError(f"lk_flow kernel: frames must be (H, W, 3), got {tuple(prev_bgr.shape)}")
     h, w = prev_bgr.shape[:2]
     k = pts.shape[0] if pts.dim() else 0
-    _check(prev_bgr, "prev_bgr", torch.uint8, (h, w, 3), dev)
-    _check(curr_bgr, "curr_bgr", torch.uint8, (h, w, 3), dev)
+    _check_frame(prev_bgr, "prev_bgr", (h, w, 3), dev)
+    _check_frame(curr_bgr, "curr_bgr", (h, w, 3), dev)
     _check(pts, "pts", torch.float32, (k, 2), dev)
     _check(valid, "valid", torch.bool, (k,), dev)
-    if (3 * w) % 16 or prev_bgr.data_ptr() % 16 or curr_bgr.data_ptr() % 16:
-        raise ValueError(
-            f"lk_flow kernel: the frames' row pitch 3*W = {3 * w} B and base addresses must be "
-            f"multiples of 16 B (TMA); got W = {w}, addresses {prev_bgr.data_ptr():#x}, "
-            f"{curr_bgr.data_ptr():#x}"
-        )
     if not 0 <= levels <= 3:
         raise ValueError(f"lk_flow kernel supports 0-3 pyramid levels above the base, got {levels}")
     if window % 2 != 1 or window > 31:
         raise ValueError(f"lk_flow kernel needs an odd window of at most 31, got {window}")
     side = roi_side(h, w)
     lib = _load()
+    prev_rows, pitch = _pitched(prev_bgr)
+    curr_rows, _ = _pitched(curr_bgr, pitch)
     out_g = torch.empty((k, 2), dtype=torch.float32, device=dev)
     status = torch.empty((k,), dtype=torch.bool, device=dev)
     if k == 0:
@@ -357,7 +406,7 @@ def lk_flow_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lk_flow_fused_launch(
-            prev_bgr.data_ptr(), curr_bgr.data_ptr(), h, w, pts.data_ptr(), valid.data_ptr(),
+            prev_rows.data_ptr(), curr_rows.data_ptr(), h, w, pitch, pts.data_ptr(), valid.data_ptr(),
             out_g.data_ptr(), status.data_ptr(), k, side, levels, window, iterations, float(epsilon), stream,
         )
     if err == _ERR_SMEM:

@@ -30,6 +30,7 @@ The entry point runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Callable
 
@@ -44,6 +45,7 @@ from eagle_tpu_torch.models.yolov8 import CONFIG_VARIANTS, init_yolov8
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
 from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.ops.nms import batched_nms
+from eagle_tpu_torch.ops.optical_flow import upload_frames
 from eagle_tpu_torch.ops.preprocess import (
     compute_work_geometry,
     host_letterbox_i420,
@@ -73,8 +75,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CoordinateModel runs on the CUDA card by default and none is available; "
-            'pass device="cpu" to run the plain CPU path'
+            "the port's entry points (CoordinateModel, Processor) run on the CUDA card by "
+            'default and none is available; pass device="cpu" to run the plain CPU path'
         )
     return dev
 
@@ -116,6 +118,10 @@ class StageTimer:
                 self.range.__exit__(*exc)
 
         return _Span()
+
+    def report(self) -> str:
+        """JSON of the stages' milliseconds, in the order they first ran."""
+        return json.dumps({k: round(v * 1e3, 3) for k, v in self.seconds.items()}, indent=2)
 
 
 class CoordinateModel:
@@ -187,7 +193,8 @@ class CoordinateModel:
     def upload(self, frames: np.ndarray, geom: WorkGeometry) -> torch.Tensor:
         """Host prescale + upload: (N, H, W, 3) uint8 BGR -> the device
         frames every stage consumes ((N, canvas_h, canvas_w, 3) uint8 BGR
-        on the working path, the raw frames otherwise)."""
+        on the working path, the raw frames otherwise, their rows padded to
+        16 bytes on the card: :func:`upload_frames`)."""
         return self._upload(frames, geom)[0]
 
     def _upload(self, frames: np.ndarray, geom: WorkGeometry) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -206,7 +213,7 @@ class CoordinateModel:
             return i420_to_bgr(planes), planes
         if fmt == "yuv420":
             raise NotImplementedError("4:2:0 transport of raw-resolution frames is not ported")
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device), None
+        return upload_frames(frames, self.device), None
 
     @torch.no_grad()
     def run_keypoints(self, x: torch.Tensor, geom: WorkGeometry, img_hw) -> torch.Tensor:
@@ -344,7 +351,7 @@ class CoordinateModel:
         # identity geometry, uploaded here when both models are injected)
         with timer("prescale"):
             if dev_frames is None:
-                dev_frames = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+                dev_frames = upload_frames(frames, dev)
 
         # first-frame seeding: backward flow from the first sampled frame
         # with >= 4 keypoints.  On the 4:2:0 path the reference flows over

@@ -9,15 +9,15 @@ the tracker.  Per frame, in order:
   1. LK optical-flow propagation of the previous keypoints (the flow
      kernel) with the movement z-score and hue-change filters;
   2. the keypoint cadence / merge rules on fixed 57-slot tensors;
-  3. geometric keypoint synthesis;
+  3. geometric keypoint synthesis, then the brightness-snap calibration
+     when ``PipelineConfig.calibration`` is on;
   4. RANSAC homography at the configured cadence, with retry on failure
      and inlier filtering -- ``lax.cond`` becomes a Python ``if`` on a
      host bool, one device sync per frame;
   5. a BoT-SORT step on the frame's detections, with the affine camera-
      motion warp fitted to the keypoint flow.
 
-Brightness-snap calibration (off by default) and the features GMC are not
-ported yet; their settings raise.
+The features GMC is not ported yet; its setting raises.
 """
 
 from __future__ import annotations
@@ -86,8 +86,6 @@ def check_config(cfg: PipelineConfig) -> None:
             f"unknown flow backend {cfg.flow.backend!r}; valid: 'xla', 'pallas2' (synonyms: "
             "the flow step runs the CUDA kernel on the card, its plain version on the CPU)"
         )
-    if cfg.calibration:
-        raise NotImplementedError("brightness-snap calibration is not ported yet")
     if cfg.tracker.gmc == "features":
         raise NotImplementedError("the features GMC is not ported yet (TrackerConfig.gmc)")
 
@@ -187,9 +185,73 @@ def flow_with_filters(
     return new_int, status & z_ok & hue_ok
 
 
+def calibrate_keypoints(
+    frame_bgr: torch.Tensor,
+    kp_xy: torch.Tensor,
+    kp_valid: torch.Tensor,
+    offset: int = 3,
+    threshold: float = 150.0,
+) -> torch.Tensor:
+    """Brightness-snap calibration: a valid in-frame keypoint whose own
+    brightness (HSV V) is below ``threshold`` moves to the brightest pixel
+    of the [x-3, x+3) x [y-3, y+3) window clipped to the frame (first one
+    in row-major order on ties).  Points are truncated toward zero; the
+    others come back truncated and unclipped."""
+    h, w, _ = frame_bgr.shape
+    d = 2 * offset
+    x = kp_xy[:, 0].to(torch.int64)
+    y = kp_xy[:, 1].to(torch.int64)
+    in_bounds = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    xs = torch.clamp(x, 0, w - 1)
+    ys = torch.clamp(y, 0, h - 1)
+
+    v, org = color.extract_windows(color.value(frame_bgr), torch.stack([xs, ys], -1), d)
+    ar = torch.arange(d, device=frame_bgr.device)
+    rows = org[:, 1][:, None] + ar[None, :]  # absolute ys
+    cols = org[:, 0][:, None] + ar[None, :]
+    x_min = torch.clamp(xs - offset, min=0)
+    y_min = torch.clamp(ys - offset, min=0)
+    row_ok = (rows >= y_min[:, None]) & (rows < torch.clamp(ys + offset, max=h)[:, None])
+    col_ok = (cols >= x_min[:, None]) & (cols < torch.clamp(xs + offset, max=w)[:, None])
+    cell_ok = row_ok[:, :, None] & col_ok[:, None, :]
+    # the point's own brightness, read out of the same window
+    at_pt = (rows == ys[:, None])[:, :, None] & (cols == xs[:, None])[:, None, :]
+    base_v = torch.where(at_pt, v, torch.zeros_like(v)).sum(dim=(1, 2))
+
+    masked = torch.where(cell_ok, v, torch.full_like(v, -1.0)).reshape(v.shape[0], -1)
+    best = torch.argmax(masked, dim=-1)
+    by_abs = torch.gather(rows, 1, (best // d)[:, None])[:, 0]
+    bx_abs = torch.gather(cols, 1, (best % d)[:, None])[:, 0]
+    # the reference's index math: clip(x + index in the clipped window - 3)
+    adj_x = torch.clamp(xs + (bx_abs - x_min) - offset, 0, w - 1)
+    adj_y = torch.clamp(ys + (by_abs - y_min) - offset, 0, h - 1)
+
+    snap = kp_valid & in_bounds & (base_v < threshold)
+    out_x = torch.where(snap, adj_x, x)
+    out_y = torch.where(snap, adj_y, y)
+    return torch.stack([out_x, out_y], dim=-1).to(kp_xy.dtype)
+
+
+def _calibrate(frame_bgr, kp_xy, kp_valid, cfg: PipelineConfig) -> torch.Tensor:
+    """Calibration in the frame's pixels.  With a working geometry the snap
+    runs on the canvas (+-3 canvas px) and only the moved points map back,
+    truncated; untouched points keep their exact coordinates."""
+    g = cfg.work
+    if not g.enabled:
+        return calibrate_keypoints(frame_bgr, kp_xy, kp_valid)
+    dev = kp_xy.device
+    pad = torch.tensor([g.pad_x, g.pad_y], dtype=torch.float32, device=dev)
+    gain = torch.tensor(g.gain, dtype=torch.float32, device=dev)
+    kpw = torch.trunc(kp_xy * gain + pad)
+    snapped = calibrate_keypoints(frame_bgr, kpw, kp_valid)
+    moved = (snapped != kpw).any(dim=-1, keepdim=True)
+    return torch.where(moved, torch.trunc((snapped - pad) / gain), kp_xy)
+
+
 def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig):
-    """Flow + cadence merge + synthesis.  Returns (flow_xy, flow_valid,
-    kp_xy, kp_valid, need_kp, corr_valid, do_h) with do_h a host bool."""
+    """Flow + cadence merge + synthesis + calibration.  Returns (flow_xy,
+    flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h) with do_h a
+    host bool."""
     t0 = xs.t > 0
     flow_xy, flow_valid = flow_with_filters(
         xs.frame_bgr,
@@ -219,6 +281,9 @@ def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig):
         do_syn = kp_valid.sum() >= cfg.synthesis.min_keypoints
         kp_xy = torch.where(do_syn, syn_xy, kp_xy)
         kp_valid = torch.where(do_syn, syn_valid, kp_valid)
+
+    if cfg.calibration:
+        kp_xy = _calibrate(xs.frame_bgr, kp_xy, kp_valid, cfg)
 
     corr_valid = kp_valid & torch.from_numpy(_ON_PLANE).to(kp_valid.device)
     do_h = (xs.is_h_frame | carry.retry_h) & (corr_valid.sum() >= cfg.homography.min_points)

@@ -2,8 +2,8 @@
 of both packages on make_scene clips, with (a) the oracle keypoint and
 detector callables and (b) the built-in HRNet-W48 / YOLOv8 with the same
 (bridged) weights at a reduced input size.  Also: the port imports
-nothing of JAX or the JAX package, and it never falls back to the CPU
-quietly.
+nothing of JAX or the JAX package, nor pandas or OpenCV (the card's
+machine has neither), and it never falls back to the CPU quietly.
 
 Tolerances, per frame of the two dicts:
 - the frame keys, "Time", "Keypoints" (names and integer pixels), the
@@ -258,6 +258,9 @@ import importlib, pkgutil, sys
 import numpy as np
 import torch
 import eagle_tpu_torch
+import eagle_tpu_torch.main
+import eagle_tpu_torch.ops.kmeans
+import eagle_tpu_torch.pipeline.processor
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 for m in pkgutil.walk_packages(eagle_tpu_torch.__path__, "eagle_tpu_torch."):
     importlib.import_module(m.name)
@@ -280,8 +283,7 @@ def detections(batch):
 
 res = CoordinateModel(keypoint_fn=keypoints, detector_fn=detections, device="cpu").get_coordinates(frames, 3)
 assert sorted(res) == [0, 1, 2], res
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "eagle_tpu" or m.startswith("eagle_tpu."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "eagle_tpu", "pandas", "cv2"))
 assert not bad, bad
 print("hermetic")
 """

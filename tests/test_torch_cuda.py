@@ -1,5 +1,6 @@
 """PyTorch port on the card: the fused CUDA flow kernel against its plain
-version, its one launch a call, its input checks and its launch count.
+version (frames whose rows are not whole 16-byte chunks included), its
+one launch a call, its input checks and its launch count.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -59,10 +60,12 @@ def _case(dev, k, hw=(544, 960)):
 # 544x960: the working canvas (K = 57 keypoints, 240 features-GMC
 # corners); 720x1280: raw frames on the identity geometry; 100x160: a frame
 # whose ROI side (100) is under 192, so the TMA boxes run past the ROI and,
-# for ROIs at the right edge, past the frame (a 148-wide frame would fail
-# the 16-byte row pitch: test_kernel_checks_its_inputs)
+# for ROIs at the right edge, past the frame; 100x148 and 480x854: rows of
+# 444 and 2562 bytes, not whole 16-byte chunks, staged into pitched buffers
 @pytest.mark.parametrize(
-    "hw,k", [((544, 960), 1), ((544, 960), 57), ((544, 960), 240), ((720, 1280), 57), ((100, 160), 57)]
+    "hw,k",
+    [((544, 960), 1), ((544, 960), 57), ((544, 960), 240), ((720, 1280), 57), ((100, 160), 57),
+     ((100, 148), 57), ((480, 854), 57)],
 )
 def test_kernel_matches_plain(dev, hw, k):
     prev, curr, pts, valid = _case(dev, k, hw)
@@ -112,13 +115,48 @@ def test_kernel_checks_its_inputs(dev):
         of.lk_flow_cuda(prev, curr[:-1], pts, valid)
     with pytest.raises(ValueError, match="curr_bgr"):  # not contiguous
         of.lk_flow_cuda(prev, curr.transpose(0, 1).contiguous().transpose(0, 1), pts, valid)
-    with pytest.raises(ValueError, match="pitch"):  # 3 * 148 = 444 B rows
-        narrow = prev[:, :148].contiguous()
-        of.lk_flow_cuda(narrow, narrow.clone(), pts, valid)
-    with pytest.raises(ValueError, match="pitch"):  # a base address off the 16-B grid
-        flat = torch.empty(prev.numel() + 1, dtype=torch.uint8, device=dev)
-        shifted = flat[1:].view(prev.shape)
-        of.lk_flow_cuda(shifted, curr, pts, valid)
     with pytest.raises(ValueError, match="odd window"):
         of.lk_flow_cuda(prev, curr, pts, valid, window=16)
     assert of.launches == before
+
+
+def test_kernel_stages_a_frame_off_the_16_byte_grid(dev):
+    """A frame whose base address is not a multiple of 16 bytes (a view one
+    byte into a buffer) is copied into an aligned buffer and tracks as the
+    plain version does."""
+    prev, curr, pts, valid = _case(dev, 57)
+    flat = torch.empty(prev.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = flat[1:].view(prev.shape)
+    shifted.copy_(prev)
+    assert shifted.data_ptr() % 16
+    before = of.launches
+    kp, ks = of.lk_flow(shifted, curr, pts, valid)
+    pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
+    torch.cuda.synchronize()
+    assert of.launches == before + 1
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    np.testing.assert_array_equal(ks, ps)
+    np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
+
+
+@pytest.mark.parametrize("hw", [(100, 148), (480, 854)])
+def test_kernel_reads_uploaded_padded_frames_in_place(dev, hw):
+    """Frames of ``upload_frames`` whose 3W-byte rows are off the 16-byte
+    grid are views of a row-padded buffer: the wrapper hands them to the
+    kernel without a copy, and they track as the plain version does on
+    contiguous copies."""
+    prev_np, curr_np = _frames(hw)
+    up = of.upload_frames(np.stack([prev_np, curr_np]), dev)
+    assert not up.is_contiguous() and up.stride(1) % 16 == 0
+    assert of._pitched(up[1])[0].data_ptr() == up[1].data_ptr()
+    pts = torch.from_numpy(_points(57, hw)).to(dev)
+    valid = torch.ones(57, dtype=torch.bool, device=dev)
+    before = of.launches
+    kp, ks = of.lk_flow(up[0], up[1], pts, valid)
+    pp, ps = of.lk_flow_plain(up[0].contiguous(), up[1].contiguous(), pts, valid)
+    torch.cuda.synchronize()
+    assert of.launches == before + 1
+    np.testing.assert_array_equal(up.cpu().numpy(), np.stack([prev_np, curr_np]))
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    np.testing.assert_array_equal(ks, ps)
+    np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
