@@ -39,9 +39,25 @@ Phases (any failure exits non-zero, nothing is caught):
    Processor's stage milliseconds and the frames-to-files rate.  The
    card's machine has no OpenCV, so decoding an .mp4, rendering and
    annotated.mp4 are not run;
-6. with ``--profile``: one more run of the slice (24 frames) under
-   ``torch.profiler``, summarised per stage (device busy and idle share,
-   host time blocked in synchronising calls) into the given JSON file.
+6. tracker: the reference's tracker, OSNet-x0.25 ReID association and
+   the features GMC (grid corners of the previous frame tracked by the
+   same flow kernel at K = 240, a robust 4-DOF fit): (a) the kernel at
+   K = 240 on the grid corners of a frame pair, raw 1280x720 and on the
+   544x960 canvas, against its plain version (status bit-equal, positions
+   within 1e-2 px; neither frame is staged into a pitched copy), with its
+   device time, the plain version's and the bound on the canvas; (b) the
+   12-frame oracle clip with the features GMC and float32 OSNet, card
+   against the plain CPU path, and the embeddings' largest difference;
+   (c) the full-width 48-frame slice with bf16 OSNet (512-d embeddings of
+   the first 64 detection slots) and the features GMC, launch counters
+   zeroed just before and read just after (K = 57 and K = 240 apart),
+   with its rate and stage milliseconds, ``reid`` among them; (d) the bf16
+   OSNet's embeddings against its float32 self on one piece;
+7. with ``--profile``: one more run of the slice (24 frames) under
+   ``torch.profiler``, and one of the tracker's slice, each summarised per
+   stage (device busy and idle share, host time blocked in synchronising
+   calls) into a JSON file: the given one, and the same name with
+   ``_tracker`` appended.
 
 The frames are made here from a fixed seed with numpy/scipy: a green
 pitch texture with white lines, panned 1-2 px per frame, whose line
@@ -82,6 +98,14 @@ FLOW_ATOL = 1e-2
 BF16_HEATMAP_ATOL = 2e-3
 BF16_SCORE_ATOL = 0.25
 BF16_BOX_ATOL = 0.25
+#: bf16 vs float32 OSNet embeddings (L2-normalised, 512-d) of the valid
+#: detections of one piece of the tracker's slice, largest absolute
+#: difference: about 5 times the reading of the first runs on an H100,
+#: 1.06e-2 (PERF.md)
+BF16_EMBED_ATOL = 0.05
+#: detection slots the tracker phase's reference clip embeds: its six
+#: players (and two empty slots), which keeps the CPU side of the check short
+REF_REID_SLOTS = 8
 #: the slice on the card against its plain CPU path on a short clip:
 #: keypoints, classes and track ids equal; boundaries (metres) within
 #: 1 cm; boxes (pixels) and pitch positions (metres), both integers, within
@@ -310,21 +334,20 @@ def flow_step_timing(of, prev, curr, p, valid, reps: int = 20) -> dict:
     return {
         "kernels_per_call": len(kernels) / reps,
         "device_ops_per_call": len(ops) / reps,
+        "other_device_ops": len(ops) - len(flow),
         "device_ms_per_call": sum(e["dur"] for e in ops) / reps / 1e3,
         "flow_kernel_ms": sum(flow) / len(flow) / 1e3,
         "wall_ms_per_call": cuda_ms(call, reps=100, warmup=5),
     }
 
 
-def phase_kernel(frames, pts):
-    """The LK flow kernel vs its plain version at K = 57 on the canvas:
-    status bit-equal, positions within FLOW_ATOL, one device kernel a call;
-    its device time, the call's wall, the plain version's, and the bound."""
+def flow_against_plain(of, prev, curr, p, valid) -> tuple[float, np.ndarray]:
+    """One flow step on CUDA tensors against ``lk_flow_plain`` on the same
+    ones: fails unless it launched the kernel once, the status is bit-equal
+    and the tracked positions agree within FLOW_ATOL.  Returns (the largest
+    position difference in px, the plain version's status)."""
     import torch
 
-    from eagle_tpu_torch.ops import optical_flow as of
-
-    prev, curr, p, valid = flow_input(frames, pts)
     k = p.shape[0]
     launches0 = of.launches
     g_k, s_k = of.lk_flow(prev, curr, p, valid)
@@ -334,35 +357,58 @@ def phase_kernel(frames, pts):
     g_p, s_p = of.lk_flow_plain(prev, curr, p, valid)
     torch.cuda.synchronize()
     s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
-    g_k, g_p = g_k.cpu().numpy(), g_p.cpu().numpy()
     if not np.array_equal(s_k, s_p):
-        fail(f"lk_flow status differs from the plain version at {np.flatnonzero(s_k != s_p).tolist()}")
-    err = float(np.abs(g_k - g_p)[s_p].max()) if s_p.any() else 0.0
-    print(f"kernel lk_flow: K={k} ok={int(s_p.sum())} max |kernel - plain| = {err:.3e} px")
+        fail(f"lk_flow status at K = {k} differs from the plain version at {np.flatnonzero(s_k != s_p).tolist()}")
+    err = float(np.abs(g_k.cpu().numpy() - g_p.cpu().numpy())[s_p].max()) if s_p.any() else 0.0
     if not err <= FLOW_ATOL:
-        fail(f"lk_flow positions differ from the plain version by {err} > {FLOW_ATOL}")
+        fail(f"lk_flow positions at K = {k} differ from the plain version by {err} > {FLOW_ATOL}")
+    return err, s_p
 
+
+def flow_times(of, prev, curr, p, valid) -> dict:
+    """The flow step's work on this input (:func:`lk_flow_work`) and bound,
+    the kernel's device time a launch and the call's wall
+    (:func:`flow_step_timing`), and the plain version's time."""
     h, w = prev.shape[:2]
     side = of.roi_side(h, w)
     origin = of.roi_origins(p, h, w, side, 2)
     record: list = []
     of.engine_plain(of.roi_pyramids(prev, curr, origin, side, 2), origin, p, side, 2, record=record)
     nbytes, ops, live_steps = lk_flow_work(origin, (h, w), side, record)
-    step = flow_step_timing(of, prev, curr, p, valid)
-    plain_ms = cuda_ms(lambda: of.lk_flow_plain(prev, curr, p, valid), reps=5)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
+    return {
+        "step": flow_step_timing(of, prev, curr, p, valid),
+        "plain_ms": cuda_ms(lambda: of.lk_flow_plain(prev, curr, p, valid), reps=5),
+        "nbytes": nbytes, "ops": ops, "live_steps": live_steps, "t_bytes": t_bytes, "t_ops": t_ops,
+        "bound": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def work_line(t: dict) -> str:
+    """The needs-and-bound part of a timing line."""
+    return (f"needs {t['nbytes']} B (union of the ROIs, both frames, and I/O) = {t['t_bytes'] * 1e3:.4f} us and "
+            f"{t['ops']} f32 instructions ({t['live_steps']} live Newton steps) = {t['t_ops'] * 1e3:.4f} us -> "
+            f"bound {t['bound'] * 1e3:.4f} us by {t['bound_by']}, kernel {t['step']['flow_kernel_ms'] / t['bound']:.1f}x "
+            f"over it")
+
+
+def phase_kernel(frames, pts):
+    """The LK flow kernel vs its plain version at K = 57 on the canvas:
+    status bit-equal, positions within FLOW_ATOL, one device kernel a call;
+    its device time, the call's wall, the plain version's, and the bound."""
+    from eagle_tpu_torch.ops import optical_flow as of
+
+    prev, curr, p, valid = flow_input(frames, pts)
+    launches0 = of.launches
+    err, s_p = flow_against_plain(of, prev, curr, p, valid)
+    print(f"kernel lk_flow: K={p.shape[0]} ok={int(s_p.sum())} max |kernel - plain| = {err:.3e} px")
+    t = flow_times(of, prev, curr, p, valid)
     of.launches = launches0  # comparison launches are not main-path launches
+    step, ms = t["step"], t["step"]["flow_kernel_ms"]
     if step["kernels_per_call"] != 1 or step["device_ops_per_call"] != 1:
         fail(f"one lk_flow call ran {step['device_ops_per_call']} device operations, expected the one kernel")
-    ms = step["flow_kernel_ms"]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
-    bound = max(t_bytes, t_ops)
-    print(
-        f"kernel lk_flow: {ms:.4f} ms device time a launch, one device kernel a call, call "
-        f"{step['wall_ms_per_call']:.4f} ms (CUDA events), plain {plain_ms:.3f} ms; needs {nbytes} B "
-        f"(union of the ROIs, both frames, and I/O) = {t_bytes * 1e3:.4f} us and {ops} f32 instructions "
-        f"({live_steps} live Newton steps) = {t_ops * 1e3:.4f} us -> bound {bound * 1e3:.4f} us by "
-        f"{'bytes' if t_bytes >= t_ops else 'operations'}, kernel {ms / bound:.1f}x over it"
-    )
+    print(f"kernel lk_flow: {ms:.4f} ms device time a launch, one device kernel a call, call "
+          f"{step['wall_ms_per_call']:.4f} ms (CUDA events), plain {t['plain_ms']:.3f} ms; {work_line(t)}")
     return {
         "name": "lk_flow",
         "route": "cuda",
@@ -371,9 +417,9 @@ def phase_kernel(frames, pts):
         "launches": None,
         "max_abs_err": err,
         "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
     }
 
@@ -625,7 +671,7 @@ def phase_slice(frames):
     import torch
 
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.ops import assignment, optical_flow
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
 
     cfg = DEFAULT_CONFIG
@@ -647,11 +693,13 @@ def phase_slice(frames):
 
     timer = StageTimer(model.device, sync=True)
     optical_flow.launches = 0
+    assignment.rounds = 0
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = optical_flow.launches
+    rounds = assignment.rounds
 
     if sorted(res) != list(range(len(frames))):
         fail("get_coordinates did not return one entry per frame")
@@ -671,12 +719,253 @@ def phase_slice(frames):
     n_valid, n_kept = detections_per_frame(model, model.upload(frames, model._geometry(FRAME_HW)))
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"slice: {len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.2f} fps; "
-          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}")
+          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}; auction rounds {rounds}")
     print(f"slice traffic, means a frame: detections entering the tracker {n_valid:.2f} "
           f"(kept at the keep threshold {n_kept:.2f}); objects reported {n_obj:.2f}, of which "
           f"tracked players and goalkeepers {n_tracked:.2f}; keypoints {n_kp:.2f}; frames with "
           f"boundaries {n_h}")
     return launches, model
+
+
+# ---------------------------------------------------------------------------
+# the reference's tracker: ReID association and the features GMC
+# ---------------------------------------------------------------------------
+
+
+def tracker_config(use_bf16: bool, reid_slots: int):
+    """DEFAULT_CONFIG with the reference's tracker: OSNet-x0.25 ReID (512-d,
+    the seeded random init) and the features GMC."""
+    import dataclasses
+
+    from eagle_tpu_torch import DEFAULT_CONFIG
+
+    cfg = DEFAULT_CONFIG
+    tracker = dataclasses.replace(
+        cfg.tracker, gmc="features", use_appearance=True, embedder="osnet", embed_dim=512, reid_slots=reid_slots
+    )
+    return cfg.replace(detector=dataclasses.replace(cfg.detector, use_bf16=use_bf16), tracker=tracker)
+
+
+def tracker_model(cfg, **kw):
+    """CoordinateModel on ``cfg``, without the warning that its OSNet has
+    random weights (it has, on purpose)."""
+    import warnings
+
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="OSNet ReID enabled without weights")
+        return CoordinateModel(config=cfg, **kw)
+
+
+def grid_corner_input(frames, canvas: bool):
+    """The features GMC's flow step on frames 0 and 1 of the clip: on the
+    544x960 canvas (the slice's 4:2:0 prescale and decode) or raw 1280x720
+    frames uploaded as the identity path uploads them; the grid corners of
+    frame 0 and their valid mask."""
+    import torch
+
+    from eagle_tpu_torch.ops.corners import grid_corners
+    from eagle_tpu_torch.ops.optical_flow import upload_frames
+    from eagle_tpu_torch.ops.preprocess import compute_work_geometry, host_letterbox_i420, i420_to_bgr
+
+    dev = torch.device("cuda")
+    if canvas:
+        geom = compute_work_geometry(FRAME_HW, 960)
+        x = i420_to_bgr(torch.from_numpy(host_letterbox_i420(frames[[0, 1]], geom)).to(dev))
+    else:
+        x = upload_frames(frames[[0, 1]], dev)
+    p, valid = grid_corners(x[0])
+    return x[0], x[1], p, valid
+
+
+def tracker_kernel(frames) -> dict:
+    """(a) The flow kernel at K = 240 on grid corners, raw and on the
+    canvas, against its plain version; device time, plain time and bound
+    on the canvas; the features GMC's time a frame and its host syncs.
+    Returns the lk_flow entry's K = 240 fields."""
+    from eagle_tpu_torch.ops import optical_flow as of
+
+    launches0, by_k0 = of.launches, dict(of.launches_by_k)
+    for canvas in (False, True):
+        prev, curr, p, valid = grid_corner_input(frames, canvas)
+        if any(of._pitched(f)[0].data_ptr() != f.data_ptr() for f in (prev, curr)):
+            fail("a frame of the features GMC would be staged into a pitched copy")
+        err, s_p = flow_against_plain(of, prev, curr, p, valid)
+        h, w = prev.shape[:2]
+        print(f"tracker kernel lk_flow: K={p.shape[0]} grid corners of a {h}x{w} pair, {int(valid.sum())} valid, "
+              f"ok={int(s_p.sum())}, max |kernel - plain| = {err:.3e} px, no frame staged")
+        if s_p.sum() < 50:
+            fail("fewer than 50 grid corners tracked: the K = 240 check is too thin")
+
+    # prev, curr, p, valid are the canvas pair's: the full-width slice's frames
+    t = flow_times(of, prev, curr, p, valid)
+    gmc_ms, gmc_syncs = features_gmc_timing(prev, curr)
+    of.launches, of.launches_by_k = launches0, by_k0  # comparison launches are not main-path launches
+    step, ms = t["step"], t["step"]["flow_kernel_ms"]
+    # every device operation of the calls is the flow kernel (the profiler
+    # has been seen to miss one launch of 20 in the trace at K = 240)
+    if step["other_device_ops"] or not 0.9 <= step["kernels_per_call"] <= 1:
+        fail(f"lk_flow calls at K = 240 ran {step['device_ops_per_call']} device operations a call, "
+             f"{step['other_device_ops']} of them not the flow kernel")
+    print(f"tracker kernel lk_flow: K=240 {ms:.4f} ms device time a launch ({step['kernels_per_call']} traced "
+          f"kernels a call, no other device operation), call {step['wall_ms_per_call']:.4f} ms (CUDA events), "
+          f"plain {t['plain_ms']:.3f} ms; {work_line(t)}")
+    print(f"tracker features GMC: {gmc_ms:.3f} ms a frame on the canvas (grid corners, the K = 240 flow step, "
+          f"the robust fit and the fallback warp; CUDA events), {gmc_syncs} host syncs")
+    if gmc_syncs:
+        fail(f"the features GMC synchronises with the host {gmc_syncs} times a frame")
+    return {"max_abs_err_k240": err, "ms_k240": ms, "plain_ms_k240": t["plain_ms"], "bound_ms_k240": t["bound"],
+            "bound_by_k240": t["bound_by"], "features_gmc_ms": gmc_ms}
+
+
+def features_gmc_timing(prev, curr) -> tuple[float, int]:
+    """One features-GMC warp (``temporal._features_gmc_warp``) on a canvas
+    pair, as the tracker's slice runs it each frame: its time a call (CUDA
+    events over 20 calls) and the synchronising operations of one call
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import types
+    import warnings
+
+    import torch
+
+    from eagle_tpu_torch.ops.preprocess import compute_work_geometry
+    from eagle_tpu_torch.pipeline import temporal
+
+    dev = prev.device
+    cfg = tracker_config(use_bf16=True, reid_slots=64).replace(work=compute_work_geometry(FRAME_HW, 960))
+    carry = types.SimpleNamespace(kp_xy=torch.zeros(57, 2, device=dev))
+    xs = types.SimpleNamespace(prev_frame_bgr=prev, frame_bgr=curr)
+    flow_xy, flow_valid = torch.zeros(57, 2, device=dev), torch.zeros(57, dtype=torch.bool, device=dev)
+
+    def call():
+        return temporal._features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            call()
+        with warnings.catch_warnings(record=True) as control:
+            warnings.simplefilter("always")
+            bool(torch.ones((), device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not any("synchroniz" in str(w.message) for w in control):
+        fail("torch.cuda.set_sync_debug_mode did not report a host sync: the sync count would read nothing")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return cuda_ms(call, reps=20), syncs
+
+
+def tracker_reference(frames, pts) -> None:
+    """(b) The oracle clip with the features GMC and float32 OSNet: card ==
+    plain CPU path; the embeddings' largest difference."""
+    import torch
+
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.ops.optical_flow import upload_frames
+
+    clip = frames[:REF_FRAMES]
+    cfg = tracker_config(use_bf16=False, reid_slots=REF_REID_SLOTS)
+    res, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        kp_fn, det_fn, _ = oracle_models(clip, pts)
+        models[dev] = tracker_model(cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
+        of.launches_by_k = {}
+        res[dev] = models[dev].get_coordinates(clip, FPS, num_keypoint_detection=6)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n240 = of.launches_by_k.get(240, 0)
+    bad = coords_mismatch(res["cuda"], res["cpu"])
+    if bad:
+        fail(f"the tracker (features GMC, OSNet f32) on the card differs from its plain CPU path: {bad}")
+    boxes = torch.from_numpy(oracle_models(clip, pts)[1](clip)[0])
+    emb_card = models["cuda"].embed(upload_frames(clip, "cuda"), boxes.cuda()).cpu()
+    emb_cpu = models["cpu"].embed(torch.from_numpy(clip), boxes)
+    emb_err = float((emb_card - emb_cpu)[:, :REF_REID_SLOTS].abs().max())
+    n_players = min(len(fr["Coordinates"].get("Player", {})) for fr in res["cuda"].values())
+    print(f"tracker reference: {len(clip)} frames, features GMC and OSNet f32 ({REF_REID_SLOTS} slots), card == "
+          f"plain CPU path; {n240} K=240 launches; embeddings max |card - CPU| = {emb_err:.3e}; "
+          f">= {n_players} players tracked per frame")
+    if n240 < len(clip) or n_players != 6:
+        fail("the tracker's reference clip did not run the features GMC every frame or lost players")
+
+
+def tracker_slice(frames, slice_model):
+    """(c) The full-width slice with the reference's tracker (bf16 OSNet,
+    64 slots, 512-d, the features GMC), on the slice model's weights;
+    (d) the bf16 embeddings against float32.  Returns (the K = 57 and
+    K = 240 launches of the run, the model)."""
+    import copy
+
+    import torch
+
+    from eagle_tpu_torch.models.osnet import embed_boxes
+    from eagle_tpu_torch.ops import assignment
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+
+    cfg = tracker_config(use_bf16=True, reid_slots=64)
+    model = tracker_model(cfg, seed=SEED, device="cuda")
+    model.keypoint_model.load_state_dict(slice_model.keypoint_model.state_dict())
+    model.detector_model.load_state_dict(slice_model.detector_model.state_dict())
+    model.get_coordinates(frames[:16], FPS, num_keypoint_detection=3)  # warm-up
+    torch.cuda.synchronize()
+
+    timer = StageTimer(model.device, sync=True)
+    of.launches, of.launches_by_k = 0, {}
+    assignment.rounds = 0
+    t0 = time.perf_counter()
+    res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n57, n240 = of.launches_by_k.get(57, 0), of.launches_by_k.get(240, 0)
+    rounds = assignment.rounds
+    if sorted(res) != list(range(len(frames))) or any(
+        set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
+    ):
+        fail("the tracker's slice did not return one entry per frame with the four keys")
+    if "reid" not in timer.seconds or n240 < len(frames) or n57 < len(frames) - 1:
+        fail(f"the tracker's slice did not embed or did not run both flows: launches K=57 {n57}, K=240 {n240}")
+    n_tracked = np.mean([len(fr["Coordinates"].get("Player", {})) + len(fr["Coordinates"].get("Goalkeeper", {}))
+                         for fr in res.values()])
+    stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
+    print(f"tracker slice: {len(frames)} frames (OSNet-x0.25 bf16, 64 slots, 512-d; features GMC) in {wall:.3f} s "
+          f"= {len(frames) / wall:.2f} fps; stage ms {json.dumps(stages)}; lk_flow launches K=57 {n57}, "
+          f"K=240 {n240}; auction rounds {rounds}; tracked players and goalkeepers {n_tracked:.2f} a frame")
+
+    geom = model._geometry(FRAME_HW)
+    x = model.upload(frames[:16], geom)
+    with torch.no_grad():
+        rows = model.run_detector(x, geom, FRAME_HW)
+        pad = torch.tensor([geom.pad_x, geom.pad_y] * 2, dtype=torch.float32, device=x.device)
+        boxes = (rows[:, :64, :4] * geom.gain + pad).contiguous()
+        valid = rows[:, :64, 6] > 0.5
+        e16 = embed_boxes(model.reid_model, x, boxes)
+        r32 = copy.deepcopy(model.reid_model)
+        r32.use_bf16 = False
+        e32 = embed_boxes(r32, x, boxes)
+        emb_err = float((e16 - e32).abs()[valid].max())
+        norm_err = float((torch.linalg.vector_norm(e16[valid], dim=-1) - 1).abs().max())
+    torch.cuda.synchronize()
+    print(f"bf16 vs float32: OSNet embeddings of {int(valid.sum())} detections {emb_err:.3e} "
+          f"(atol {BF16_EMBED_ATOL}); unit norm within {norm_err:.1e}")
+    if not (emb_err <= BF16_EMBED_ATOL and norm_err < 1e-3):
+        fail("bf16 OSNet embeddings disagree with float32")
+    return n57, n240, model
+
+
+def phase_tracker(frames, pts, slice_model):
+    """The reference's tracker on the card: (a) the K = 240 kernel, (b) the
+    reference clip, (c) the full-width slice, (d) bf16 OSNet.  Returns (the
+    lk_flow entry's tracker fields, the tracker model)."""
+    fields = tracker_kernel(frames)
+    tracker_reference(frames, pts)
+    n57, n240, model = tracker_slice(frames, slice_model)
+    fields.update(tracker_launches_k57=n57, tracker_launches_k240=n240)
+    return fields, model
 
 
 def make_match(frames, seed: int = SEED):
@@ -926,7 +1215,8 @@ def phase_profile(model, frames, out_path: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="JSON", default=None,
-                    help="also profile one run of the slice and write a per-stage summary here")
+                    help="also profile one run of the slice (and of the tracker's slice, to the same name "
+                         "with _tracker appended) and write a per-stage summary here")
     args = ap.parse_args()
     try:
         import torch
@@ -953,9 +1243,12 @@ def main() -> int:
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
     flow["launches"], model = phase_slice(frames)
+    tracker_fields, tracker = phase_tracker(frames, pts, model)
+    flow.update(tracker_fields)
     phase_process(frames, pts)
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
+        phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [flow]}))
     print(card)

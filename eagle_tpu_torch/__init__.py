@@ -10,9 +10,11 @@ layout mirrors the reference so that each counterpart is easy to find:
 - :mod:`eagle_tpu_torch.ops` -- tensor ops, and the one hand-written CUDA
   kernel (``csrc/lk_flow.cu``, Lucas-Kanade optical flow) behind
   :func:`eagle_tpu_torch.ops.optical_flow.lk_flow`;
-- :mod:`eagle_tpu_torch.models` -- HRNet-W48 and YOLOv8 as ``nn.Module``s
-  plus the weight bridge from the JAX parameter pytrees;
-- :mod:`eagle_tpu_torch.track` -- the BoT-SORT tracker;
+- :mod:`eagle_tpu_torch.models` -- HRNet-W48, YOLOv8 and the OSNet-x0.25
+  ReID network as ``nn.Module``s, plus the weight bridge from the JAX
+  parameter pytrees;
+- :mod:`eagle_tpu_torch.track` -- the BoT-SORT tracker, with appearance
+  association;
 - :mod:`eagle_tpu_torch.pipeline` -- the temporal step and
   ``CoordinateModel.get_coordinates``.
 

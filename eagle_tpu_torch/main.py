@@ -7,8 +7,11 @@ writes output/<video_name>/{raw_coordinates.json, raw_data.json,
 metadata.json, processed_data.json, annotated.mp4}.  Decoding the .mp4 and
 writing annotated.mp4 need OpenCV; the rest runs from frames in memory
 through :func:`run`, which is what tests and ``chip_smoke.py`` call.  The
-models run on the card unless ``--device cpu``; without trained weights
-(not loadable yet) they are seeded random inits.
+models run on the card unless ``--device cpu``; the detector and keypoint
+model are seeded random inits (their checkpoints are not loadable yet).
+``--reid_weights osnet.pt`` (a torchreid OSNet-x0.25 state dict, ``.pt`` or
+``.pth``) turns on appearance association in the tracker, as the
+reference's BoTSORT runs it.
 """
 
 from __future__ import annotations
@@ -87,7 +90,13 @@ def main(argv=None) -> None:
     parser.add_argument("--fps", type=int, default=24)
     parser.add_argument("--keypoint_weights", type=str, default=None, help=".pth HRNet checkpoint (not ported)")
     parser.add_argument("--detector_weights", type=str, default=None, help="YOLOv8 state_dict (not ported)")
-    parser.add_argument("--reid_weights", type=str, default=None, help="OSNet-x0.25 ReID checkpoint (not ported)")
+    parser.add_argument(
+        "--reid_weights",
+        type=str,
+        default=None,
+        help="OSNet-x0.25 ReID checkpoint, a torchreid state dict (.pt / .pth); turns on appearance "
+        "association in the tracker (the reference's BoTSORT configuration)",
+    )
     parser.add_argument("--num_homography", type=int, default=1)
     parser.add_argument("--num_keypoint_detection", type=int, default=3)
     parser.add_argument("--calibration", action="store_true")
@@ -104,24 +113,24 @@ def main(argv=None) -> None:
     if args.keypoint_weights is not None or args.detector_weights is not None:
         raise NotImplementedError(
             "--keypoint_weights / --detector_weights: checkpoint loaders are not ported yet "
-            "(ROADMAP.md Queue 1, item 5)"
+            "(ROADMAP.md Queue 1, item 3)"
         )
-    if args.reid_weights is not None:
-        raise NotImplementedError("--reid_weights: ReID / OSNet is not ported yet (ROADMAP.md Queue 1, item 6)")
     if args.segment_frames > 0:
-        raise NotImplementedError("--segment_frames: streaming is not ported yet (ROADMAP.md Queue 1, item 7)")
+        raise NotImplementedError("--segment_frames: streaming is not ported yet (ROADMAP.md Queue 1, item 4)")
 
     from eagle_tpu_torch.io.video import read_video_array
 
     video_name = args.video_path.split("/")[-1].split(".")[0]
     root = f"output/{video_name}"
     print("WARNING: running without trained weights (seeded random models)")
+    # --reid_weights alone turns ReID on: use_appearance=None follows the weights
+    model = CoordinateModel(reid_checkpoint=args.reid_weights, device=args.device)
     frames, fps = read_video_array(args.video_path, args.fps)
     out = run(
         frames,
         fps,
         root,
-        CoordinateModel(device=args.device),
+        model,
         num_homography=args.num_homography,
         num_keypoint_detection=args.num_keypoint_detection,
         calibration=args.calibration,

@@ -1,12 +1,13 @@
-"""Weight bridge: the JAX package's HRNet / YOLOv8 parameter pytrees
-(nested dicts and lists with numpy-convertible leaves, HWIO conv kernels)
--> this package's state dicts (OIHW).
+"""Weight bridge: the JAX package's HRNet / YOLOv8 / OSNet parameter
+pytrees (nested dicts and lists with numpy-convertible leaves, HWIO conv
+kernels) -> this package's state dicts (OIHW).
 
 The port's modules name their sub-modules after the pytree keys, so the
 map is mechanical: dict keys and list indices join with ".", ``None``
 entries are skipped (their ``nn.Identity`` placeholders hold no state),
-and every 4-D leaf named ``w`` is transposed HWIO -> OIHW.  Nothing here
-imports the JAX package: leaves only need ``numpy.asarray``.
+and every 4-D leaf, a conv kernel, is transposed HWIO -> OIHW (a depthwise
+kernel (3, 3, 1, C) becomes (C, 1, 3, 3)).  Nothing here imports the JAX
+package: leaves only need ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch.models.hrnet import HRNet
+from eagle_tpu_torch.models import osnet
+from eagle_tpu_torch.models.osnet import OSNet
 from eagle_tpu_torch.models.yolov8 import VARIANTS, YOLOv8, _scaled
 
 
@@ -34,10 +37,9 @@ def flatten_params(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
             out.update(flatten_params(v, f"{prefix}{i}."))
         return out
     arr = np.asarray(tree, dtype=np.float32)
-    name = prefix[:-1]
-    if name.rsplit(".", 1)[-1] == "w" and arr.ndim == 4:
+    if arr.ndim == 4:
         arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    out[name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C", copy=True))
+    out[prefix[:-1]] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C", copy=True))
     return out
 
 
@@ -67,3 +69,8 @@ def yolov8_from_jax(params: Any, use_bf16: bool = False) -> YOLOv8:
     model = YOLOv8(infer_yolov8_variant(params), num_classes, use_bf16)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def osnet_from_jax(params: Any, use_bf16: bool = False) -> OSNet:
+    """OSNet module holding the weights of a JAX ``osnet`` pytree."""
+    return osnet.from_state_dict(flatten_params(params), use_bf16)

@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import torch
 
+#: auction rounds run; each ends in one host sync, the loop's exit test
+rounds = 0
+
 
 def auction_assignment(
     cost: torch.Tensor,
@@ -45,7 +48,9 @@ def auction_assignment(
 
     prices = torch.zeros(ctot, dtype=cost.dtype, device=dev)
     owner = torch.full((ctot,), -1, dtype=torch.int64, device=dev)
+    global rounds
     for _ in range(iterations):
+        rounds += 1
         assigned = (owner[None, :] == row_ids[:, None]).any(dim=1)
         bidding = row_ok & ~assigned
         if not bool(bidding.any()):

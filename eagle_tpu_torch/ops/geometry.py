@@ -13,13 +13,15 @@ from eagle_tpu_torch import pitch
 def masked_median(values: torch.Tensor, valid: torch.Tensor, interpolate: bool = False) -> torch.Tensor:
     """Median of the valid entries of a 1-D tensor (0.0 when none).
     ``interpolate=False`` picks the LOWER-middle element for even counts;
-    ``interpolate=True`` averages the two middle elements."""
+    ``interpolate=True`` averages the two middle elements.  The middle
+    elements are gathered on the device (indexing with a 0-d tensor would
+    read the index back to the host)."""
     s, _ = torch.sort(torch.where(valid, values, torch.full_like(values, torch.inf)))
     count = valid.sum()
     lo_idx = torch.clamp(count - 1, min=0) // 2
     hi_idx = (torch.clamp(count - 1, min=0) - lo_idx) if interpolate else lo_idx
-    lo = s[lo_idx.clamp(max=s.shape[0] - 1)]
-    hi = s[hi_idx.clamp(max=s.shape[0] - 1)]
+    mid = torch.stack([lo_idx, hi_idx]).clamp(max=s.shape[0] - 1)
+    lo, hi = s.gather(0, mid)
     return torch.where(count > 0, 0.5 * (lo + hi), torch.zeros_like(lo))
 
 

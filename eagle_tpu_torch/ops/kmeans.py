@@ -128,7 +128,19 @@ def gather_crops(frames: torch.Tensor, frame_idx: torch.Tensor, boxes: torch.Ten
     v01 = img[fi, yy, xx + 1]
     v10 = img[fi, yy + 1, xx]
     v11 = img[fi, yy + 1, xx + 1]
-    return v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx + v10 * fy * (1 - fx) + v11 * fy * fx
+    # v00 (1-fy)(1-fx) + v01 (1-fy) fx + v10 fy (1-fx) + v11 fy fx, each
+    # product rounded left to right and every sum fused with the product
+    # on its left, as XLA contracts the JAX package's expression: the
+    # same bits, so hard bins of the crops (the histogram embedder) agree
+    out = _fma(v00 * (1 - fy), 1 - fx, v01 * (1 - fy) * fx)
+    out = _fma(v10 * fy, 1 - fx, out)
+    return _fma(v11 * fy, fx, out)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (float32 products are exact
+    in float64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 def gather_crops_host(frames, frame_idx: np.ndarray, boxes: np.ndarray, grid_hw=(64, 32)) -> np.ndarray:

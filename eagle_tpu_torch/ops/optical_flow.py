@@ -257,6 +257,8 @@ _build_lock = threading.Lock()
 _lib = None
 #: launches of the CUDA kernel (one per lk_flow call on a CUDA tensor)
 launches = 0
+#: the same launches by their point count K (57 keypoints, 240 corners)
+launches_by_k: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -420,6 +422,7 @@ def lk_flow_cuda(
         )
         raise RuntimeError(f"lk_flow kernel launch failed: {what}")
     launches += 1
+    launches_by_k[k] = launches_by_k.get(k, 0) + 1
     return out_g, status
 
 

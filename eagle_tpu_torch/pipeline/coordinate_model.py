@@ -10,8 +10,10 @@ path, one-shot and single-clip:
   detector's working canvas (544x960 for 720p) as packed 4:2:0 planes
   (native C++), uploaded, and rebuilt as BGR on the card (BT.601 inverse);
 - the detector (YOLOv8 + class-aware NMS) on every frame, in batches of
-  ``PIECE``; the keypoint model (HRNet-W48 + heatmap decode) on the
-  cadence frames, in batches of ``KP_BATCH``;
+  ``PIECE``, and with ``TrackerConfig.use_appearance`` the appearance
+  embeddings of the first ``reid_slots`` detections of each frame (OSNet
+  or the HSV histogram); the keypoint model (HRNet-W48 + heatmap decode)
+  on the cadence frames, in batches of ``KP_BATCH``;
 - first-frame seeding by backward flow, then the temporal step frame by
   frame (:mod:`eagle_tpu_torch.pipeline.temporal`), with the reference's
   on-demand keypoint rounds (at most 3);
@@ -21,7 +23,11 @@ Models: the built-in HRNet / YOLOv8 (seeded random weights, or the JAX
 package's parameter pytrees through ``keypoint_params=`` /
 ``detector_params=``), or injected callables ``keypoint_fn`` /
 ``detector_fn``, which receive original-resolution frames (and force the
-identity geometry).
+identity geometry).  The ReID OSNet-x0.25: a torchreid state dict
+(``reid_checkpoint=``, ``.pt`` / ``.pth``), a JAX pytree
+(``reid_params=``), or a seeded random init (with a warning).
+``TrackerConfig.use_appearance=None`` means on exactly when ReID weights
+are given.
 
 The entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises.
@@ -32,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -39,9 +46,11 @@ import torch
 
 from eagle_tpu_torch import pitch
 from eagle_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig, WorkGeometry
-from eagle_tpu_torch.models.bridge import hrnet_from_jax, yolov8_from_jax
+from eagle_tpu_torch.models.bridge import hrnet_from_jax, osnet_from_jax, yolov8_from_jax
 from eagle_tpu_torch.models.hrnet import init_hrnet
+from eagle_tpu_torch.models.osnet import OSNet, embed_boxes, init_osnet, osnet_from_torch
 from eagle_tpu_torch.models.yolov8 import CONFIG_VARIANTS, init_yolov8
+from eagle_tpu_torch.ops.embed import HIST_BINS, histogram_embeddings
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
 from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.ops.nms import batched_nms
@@ -124,6 +133,60 @@ class StageTimer:
         return json.dumps({k: round(v * 1e3, 3) for k, v in self.seconds.items()}, indent=2)
 
 
+def _reid_model(cfg: PipelineConfig, reid_params=None, reid_checkpoint: str | None = None, seed: int = 0):
+    """The appearance slot's OSNet (on the CPU), or None when the config
+    embeds nothing or with the histogram.  Checks the embedder, that given
+    weights will be used, and that the feature width is ``embed_dim``.
+    Weights: a torchreid state dict (``.pt`` / ``.pth``), a JAX pytree, or a
+    seeded random init with a warning."""
+    tcfg = cfg.tracker
+    if tcfg.use_appearance and tcfg.embedder not in ("osnet", "histogram"):
+        raise ValueError(
+            f"TrackerConfig.embedder must be 'osnet' or 'histogram' when use_appearance=True, got {tcfg.embedder!r}"
+        )
+    osnet = bool(tcfg.use_appearance) and tcfg.embedder == "osnet"
+    if (reid_checkpoint is not None or reid_params is not None) and not osnet:
+        raise ValueError(
+            "reid_checkpoint/reid_params given but the tracker would not use them: set "
+            'TrackerConfig(use_appearance=True, embedder="osnet")'
+        )
+    bins = int(np.prod(HIST_BINS))
+    if tcfg.use_appearance and tcfg.embedder == "histogram" and tcfg.embed_dim != bins:
+        raise ValueError(
+            f"the histogram embedder is a fixed {bins}-bin HSV histogram; set TrackerConfig.embed_dim={bins} "
+            "(or use embedder='osnet')"
+        )
+    if not osnet:
+        return None
+    bf16 = cfg.detector.use_bf16
+    if reid_checkpoint is not None:
+        if reid_checkpoint.endswith(".msgpack"):
+            raise NotImplementedError(
+                "reid_checkpoint: .msgpack checkpoints are not loadable yet (ROADMAP.md Queue 1, item 3, "
+                "checkpoint loaders); pass a torchreid .pt / .pth state dict"
+            )
+        sd = torch.load(reid_checkpoint, map_location="cpu", weights_only=True)
+        model = osnet_from_torch(sd, use_bf16=bf16)
+    elif reid_params is not None:
+        model = osnet_from_jax(reid_params, use_bf16=bf16)
+    else:
+        warnings.warn(
+            "OSNet ReID enabled without weights: appearance embeddings are RANDOM (association falls back "
+            "to its IoU behaviour at best); pass reid_checkpoint= (osnet_x0_25_msmt17.pt) for the "
+            "reference's ReID",
+            stacklevel=3,
+        )
+        model = init_osnet(seed + 2, "x0_25", feature_dim=tcfg.embed_dim, use_bf16=bf16)
+    feat_dim = int(model.fc.w.shape[1])
+    if feat_dim != tcfg.embed_dim:
+        raise ValueError(
+            f"ReID checkpoint feature dim {feat_dim} != TrackerConfig.embed_dim {tcfg.embed_dim}: the "
+            "detection rows and the track-embedding carry are sized by embed_dim "
+            "(osnet_x0_25_msmt17.pt is 512-d)"
+        )
+    return model
+
+
 class CoordinateModel:
     def __init__(
         self,
@@ -135,17 +198,22 @@ class CoordinateModel:
         detector_params=None,
         keypoint_fn: Callable | None = None,
         detector_fn: Callable | None = None,
+        reid_params=None,
+        reid_checkpoint: str | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
     ):
         cfg = config or DEFAULT_CONFIG
-        if cfg.tracker.use_appearance:
-            raise NotImplementedError("appearance association (ReID) is not ported yet")
-        # None means "follow the weights"; no ReID weights exist here
-        cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, use_appearance=False))
+        if cfg.tracker.use_appearance is None:
+            # "follow the weights": ReID is on exactly when weights are given
+            given = reid_checkpoint is not None or reid_params is not None
+            cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, use_appearance=given))
         temporal.check_config(cfg)
+        reid = _reid_model(cfg, reid_params, reid_checkpoint, seed)
         self.config = cfg
         self.device = resolve_device(device)
+        #: the appearance slot's OSNet (None with the histogram or no ReID)
+        self.reid_model: OSNet | None = None if reid is None else reid.to(self.device).eval()
         self.keypoint_conf = keypoint_conf
         self.detector_conf = detector_conf
         self.seed = seed
@@ -233,34 +301,63 @@ class CoordinateModel:
         return torch.cat([kp, valid.to(torch.float32)[..., None]], dim=-1)
 
     @torch.no_grad()
-    def run_detector(self, x: torch.Tensor, geom: WorkGeometry, img_hw) -> torch.Tensor:
+    def run_detector(self, x: torch.Tensor, geom: WorkGeometry, img_hw, timer: StageTimer | None = None) -> torch.Tensor:
         """Detector + NMS on a (B, H, W, 3) uint8 BGR device batch ->
-        (B, D, 7) [x1, y1, x2, y2, conf, cls, valid] in ORIGINAL pixels."""
+        (B, D, 7) [x1, y1, x2, y2, conf, cls, valid] in ORIGINAL pixels,
+        and with appearance on (B, D, 7 + E): the embeddings of the boxes,
+        cropped from ``x`` (on the working path with the boxes mapped to
+        canvas pixels).  ``timer`` takes the stages "detector" and
+        "reid"."""
+        timer = timer or StageTimer(self.device)
         dcfg = self.config.detector
         h, w = img_hw
-        if geom.enabled:
-            imgs = x.flip(-1).to(torch.float32) / 255.0
-            gain = geom.gain
-            pad = (geom.pad_x, geom.pad_y)
+        with timer("detector"):
+            if geom.enabled:
+                imgs = x.flip(-1).to(torch.float32) / 255.0
+                gain = geom.gain
+                pad = (geom.pad_x, geom.pad_y)
+            else:
+                imgs, gain, pad = letterbox(x, size=dcfg.image_size)
+            boxes, scores = self.detector_model(imgs.permute(0, 3, 1, 2).contiguous())
+            b, s, c, v = batched_nms(
+                boxes,
+                scores,
+                conf_threshold=min(self.detector_conf, dcfg.low_conf),
+                iou_threshold=dcfg.nms_iou,
+                max_det=dcfg.max_detections,
+                pre_topk=dcfg.nms_pre_topk,
+            )
+            dev = b.device
+            pad4 = torch.tensor([pad[0], pad[1], pad[0], pad[1]], dtype=torch.float32, device=dev)
+            gain_t = torch.tensor(gain, dtype=torch.float32, device=dev)
+            b = (b - pad4) / gain_t
+            hi = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev)
+            b = torch.minimum(torch.clamp(b, min=0.0), hi)
+            rows = torch.cat(
+                [b, s[..., None], c.to(torch.float32)[..., None], v.to(torch.float32)[..., None]], dim=-1
+            )
+        if self.config.tracker.use_appearance:
+            with timer("reid"):
+                rows = torch.cat([rows, self.embed(x, b * gain_t + pad4 if geom.enabled else b)], dim=-1)
+        return rows
+
+    @torch.no_grad()
+    def embed(self, x: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """Appearance embeddings: (B, H, W, 3) uint8 frames + (B, D, 4) xyxy
+        boxes in the same pixels -> (B, D, E).  Only the first
+        ``TrackerConfig.reid_slots`` slots (NMS compacts kept boxes score-
+        descending; a custom ``detector_fn`` must front-compact its valid
+        ones) are embedded; the others get zeros, which the appearance gate
+        treats as a miss."""
+        tcfg = self.config.tracker
+        nb, d = boxes.shape[:2]
+        k = min(tcfg.reid_slots, d)
+        if self.reid_model is not None:
+            emb = embed_boxes(self.reid_model, x, boxes[:, :k])
         else:
-            imgs, gain, pad = letterbox(x, size=dcfg.image_size)
-        boxes, scores = self.detector_model(imgs.permute(0, 3, 1, 2).contiguous())
-        b, s, c, v = batched_nms(
-            boxes,
-            scores,
-            conf_threshold=min(self.detector_conf, dcfg.low_conf),
-            iou_threshold=dcfg.nms_iou,
-            max_det=dcfg.max_detections,
-            pre_topk=dcfg.nms_pre_topk,
-        )
-        dev = b.device
-        pad4 = torch.tensor([pad[0], pad[1], pad[0], pad[1]], dtype=torch.float32, device=dev)
-        b = (b - pad4) / torch.tensor(gain, dtype=torch.float32, device=dev)
-        hi = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev)
-        b = torch.minimum(torch.clamp(b, min=0.0), hi)
-        return torch.cat(
-            [b, s[..., None], c.to(torch.float32)[..., None], v.to(torch.float32)[..., None]], dim=-1
-        )
+            fi = torch.arange(nb, device=x.device).repeat_interleave(k)
+            emb = histogram_embeddings(x, fi, boxes[:, :k].reshape(-1, 4)).reshape(nb, k, -1)
+        return torch.cat([emb, emb.new_zeros(nb, d - k, emb.shape[-1])], dim=1)
 
     def _custom_keypoints(self, frames: np.ndarray) -> np.ndarray:
         kp, valid = self._keypoint_fn(frames)
@@ -303,8 +400,8 @@ class CoordinateModel:
     ) -> dict:
         """{frame_idx: {"Coordinates", "Time", "Keypoints", "Boundaries"}}
         for BGR uint8 frames (N, H, W, 3).  ``timer`` (optional) collects
-        per-stage wall-clock seconds (prescale, detector, keypoints,
-        temporal, assembly)."""
+        per-stage wall-clock seconds (prescale, detector, reid when
+        appearance is on, keypoints, temporal, assembly)."""
         timer = timer or StageTimer(self.device)
         frames = np.asarray(frames)
         n = len(frames)
@@ -321,19 +418,26 @@ class CoordinateModel:
         kp_interval = max(1, int(fps / max(1, num_keypoint_detection)))
         h_interval = max(1, int(fps / max(1, num_homography)))
 
+        appearance = bool(cfg.tracker.use_appearance)
         with timer("prescale"):
             dev_frames = planes = None
-            if not (self._custom_kp and self._custom_det):
+            if not (self._custom_kp and self._custom_det) or appearance:
                 dev_frames, planes = self._upload(frames, geom)
 
-        with timer("detector"):
-            det_rows = []
-            for i in range(0, n, PIECE):
-                if self._custom_det:
-                    det_rows.append(torch.from_numpy(self._custom_detections(frames[i : i + PIECE])))
-                else:
-                    det_rows.append(self.run_detector(dev_frames[i : i + PIECE], geom, img_hw))
-            det = torch.cat([d.to(dev) for d in det_rows])
+        # detections, and their embeddings, a piece at a time (a piece of
+        # 1024 ReID crops of 256x128 is ~400 MB in float32)
+        det_rows = []
+        for i in range(0, n, PIECE):
+            if self._custom_det:
+                with timer("detector"):
+                    rows = torch.from_numpy(self._custom_detections(frames[i : i + PIECE])).to(dev)
+                if appearance:
+                    with timer("reid"):
+                        rows = torch.cat([rows, self.embed(dev_frames[i : i + PIECE], rows[..., :4])], dim=-1)
+            else:
+                rows = self.run_detector(dev_frames[i : i + PIECE], geom, img_hw, timer)
+            det_rows.append(rows)
+        det = torch.cat(det_rows)
 
         sampled = list(range(0, n, kp_interval))
         mem_kp = np.zeros((n, 57, 3), np.float32)
@@ -410,6 +514,7 @@ class CoordinateModel:
                         det_cls=det[t, :, 5].to(torch.int64),
                         det_valid=det[t, :, 6] > 0.5,
                         t=t,
+                        det_embed=det[t, :, 7:] if appearance else None,
                     )
                     carries[t + 1], outs[t] = temporal.temporal_step(carries[t], xs, cfg, gumbel_fn)
                     self.frames_stepped += 1
@@ -428,7 +533,7 @@ class CoordinateModel:
             out = temporal.FrameOutputs(
                 *(torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(len(outs[0])))
             )
-            det_np = det.cpu().numpy()
+            det_np = det[..., :7].cpu().numpy()
             res = self._assemble(
                 out,
                 det_np[..., :4],

@@ -14,10 +14,11 @@ the tracker.  Per frame, in order:
   4. RANSAC homography at the configured cadence, with retry on failure
      and inlier filtering -- ``lax.cond`` becomes a Python ``if`` on a
      host bool, one device sync per frame;
-  5. a BoT-SORT step on the frame's detections, with the affine camera-
-     motion warp fitted to the keypoint flow.
-
-The features GMC is not ported yet; its setting raises.
+  5. a BoT-SORT step on the frame's detections (with their appearance
+     embeddings when ``TrackerConfig.use_appearance``), after the camera-
+     motion warp: fitted to the keypoint flow, or with ``gmc="features"``
+     to grid corners of the previous frame tracked by the same flow kernel
+     (:func:`_features_gmc_warp`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from eagle_tpu_torch import pitch
 from eagle_tpu_torch.config import PipelineConfig
 from eagle_tpu_torch.ops import color
+from eagle_tpu_torch.ops.corners import fit_similarity_robust, grid_corners
 from eagle_tpu_torch.ops.geometry import masked_median, synthesize_keypoints
 from eagle_tpu_torch.ops.homography import ransac_homography, sample_minimal_sets
 from eagle_tpu_torch.ops.optical_flow import lk_flow
@@ -62,6 +64,8 @@ class FrameInputs(NamedTuple):
     det_cls: torch.Tensor  # (D,)
     det_valid: torch.Tensor  # (D,)
     t: int  # frame index
+    #: (D, E) appearance embeddings; None when appearance is off
+    det_embed: torch.Tensor | None = None
 
 
 class FrameOutputs(NamedTuple):
@@ -86,8 +90,6 @@ def check_config(cfg: PipelineConfig) -> None:
             f"unknown flow backend {cfg.flow.backend!r}; valid: 'xla', 'pallas2' (synonyms: "
             "the flow step runs the CUDA kernel on the card, its plain version on the CPU)"
         )
-    if cfg.tracker.gmc == "features":
-        raise NotImplementedError("the features GMC is not ported yet (TrackerConfig.gmc)")
 
 
 def init_carry(cfg: PipelineConfig, device) -> TemporalCarry:
@@ -97,7 +99,9 @@ def init_carry(cfg: PipelineConfig, device) -> TemporalCarry:
         H=torch.eye(3, device=device),
         H_ok=torch.zeros((), dtype=torch.bool, device=device),
         retry_h=torch.zeros((), dtype=torch.bool, device=device),
-        tracker=botsort.init_state(cfg.tracker.max_tracks, device),
+        tracker=botsort.init_state(
+            cfg.tracker.max_tracks, cfg.tracker.embed_dim if cfg.tracker.use_appearance else 1, device
+        ),
     )
 
 
@@ -325,6 +329,39 @@ def temporal_step(
     )
 
 
+def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flow_valid) -> torch.Tensor:
+    """Full-frame sparse-feature GMC (``TrackerConfig.gmc="features"``,
+    boxmot's sparse-optical-flow GMC): the grid corners of the previous
+    frame, tracked to the current frame by the flow step (the CUDA kernel
+    on the card, at K = 240), and the robust 4-DOF fit.  Below
+    ``gmc_min_features`` inliers the keypoint-flow affine takes its place
+    (a ``torch.where``: no host sync).
+
+    With a working geometry the frames are canvases: the fit runs in canvas
+    pixels and maps back to original ones (``x_c = g x_o + p``: ``R_o =
+    R_c``, ``t_o = (R_c p + t_c - p) / g``)."""
+    pts, pvalid = grid_corners(xs.prev_frame_bgr)
+    new_pts, status = lk_flow(
+        xs.prev_frame_bgr,
+        xs.frame_bgr,
+        pts,
+        pvalid,
+        window=cfg.flow.window,
+        levels=cfg.flow.pyramid_levels,
+        iterations=cfg.flow.iterations,
+        epsilon=cfg.flow.epsilon,
+    )
+    warp, n_inl = fit_similarity_robust(pts, new_pts, pvalid & status)
+    g = cfg.work
+    if g.enabled:  # with the padding as Python numbers: nothing is uploaded
+        R = warp[:, :2]
+        shift = R[:, 0] * g.pad_x + R[:, 1] * g.pad_y + warp[:, 2]
+        t = torch.stack([shift[0] - g.pad_x, shift[1] - g.pad_y]) / g.gain
+        warp = torch.cat([R, t[:, None]], 1)
+    fallback = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=True)
+    return torch.where(n_inl >= cfg.tracker.gmc_min_features, warp, fallback)
+
+
 def _post_homography(
     carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
 ):
@@ -337,7 +374,9 @@ def _post_homography(
     retry_h = attempted & ~h_success
 
     gmc = None
-    if cfg.tracker.gmc != "off":
+    if cfg.tracker.gmc == "features":
+        gmc = _features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid)
+    elif cfg.tracker.gmc != "off":
         gmc = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=cfg.tracker.gmc == "affine")
     tracker, tout = botsort.step(
         carry.tracker,
@@ -347,6 +386,7 @@ def _post_homography(
         xs.det_valid,
         cfg.tracker,
         gmc_warp=gmc,
+        det_embed=xs.det_embed if cfg.tracker.use_appearance else None,
     )
     new_carry = TemporalCarry(
         kp_xy=kp_xy, kp_valid=kp_valid, H=H, H_ok=H_ok, retry_h=retry_h, tracker=tracker

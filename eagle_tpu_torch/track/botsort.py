@@ -1,6 +1,6 @@
 """BoT-SORT-style multi-object tracker as a fixed-shape state machine
 (PyTorch counterpart of ``eagle_tpu/track/botsort.py``; boxmot 15.0.2's
-BoTSORT cascade, appearance off).
+BoTSORT cascade).
 
 Per frame: Kalman predict of the activated pool (lost tracks with zeroed
 size velocity; tentative tracks not predicted), the affine camera-motion
@@ -11,6 +11,13 @@ remaining high detections (score-fused IoU gate 0.7) -- the measurement
 update, the lifecycle, spawning of new tracks into free slots (k-th free
 slot takes the k-th new detection) and duplicate suppression between
 tracked and lost tracks.
+
+With ``TrackerConfig.use_appearance`` and per-detection embeddings (the
+ReID role: OSNet or the HSV histogram), the first and third stages take
+``min(cost, cosine distance / 2)``, the appearance distance gated to 1 where
+it exceeds ``appearance_thresh`` or the IoU distance exceeds
+``proximity_thresh``; matched tracks keep an EMA of their detections'
+embeddings and a new track starts from its detection's.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ class TrackerState(NamedTuple):
     track_id: torch.Tensor  # (T,) int64
     conf: torch.Tensor  # (T,)
     cls: torch.Tensor  # (T,) int64
+    embed: torch.Tensor  # (T, E) EMA appearance embedding (zeros if unused)
     start_frame: torch.Tensor  # (T,) frame the track spawned on
     next_id: torch.Tensor  # () int64
     frame: torch.Tensor  # () int64 (1-based after first step)
@@ -54,7 +62,7 @@ class TrackerOutput(NamedTuple):
     valid: torch.Tensor  # (T,) emit mask
 
 
-def init_state(max_tracks: int = 64, device="cpu") -> TrackerState:
+def init_state(max_tracks: int = 64, embed_dim: int = 64, device="cpu") -> TrackerState:
     t = max_tracks
     i64 = dict(dtype=torch.int64, device=device)
     return TrackerState(
@@ -66,6 +74,7 @@ def init_state(max_tracks: int = 64, device="cpu") -> TrackerState:
         track_id=torch.zeros(t, **i64),
         conf=torch.zeros(t, device=device),
         cls=torch.zeros(t, **i64),
+        embed=torch.zeros(t, embed_dim, device=device),
         start_frame=torch.zeros(t, **i64),
         next_id=torch.ones((), **i64),
         frame=torch.zeros((), **i64),
@@ -85,17 +94,19 @@ def step(
     det_valid: torch.Tensor,
     cfg: TrackerConfig = TrackerConfig(),
     gmc_warp: torch.Tensor | None = None,
+    det_embed: torch.Tensor | None = None,
 ) -> tuple[TrackerState, TrackerOutput]:
     """Advance the tracker one frame on the fixed-shape NMS outputs
     det_boxes (D, 4) xyxy, det_conf (D,), det_cls (D,), det_valid (D,).
 
     gmc_warp: optional (2, 3) camera-motion affine since the last frame,
     applied with boxmot's multi_gmc semantics (the 2x2 part rotates every
-    (x, y) / (w, h) / velocity pair of the state)."""
+    (x, y) / (w, h) / velocity pair of the state).
+    det_embed: optional (D, E) L2-normalised appearance embeddings, used
+    when ``cfg.use_appearance`` (None there behaves as False)."""
     if cfg.assignment != "auction":
         raise NotImplementedError("only the auction solver is ported (TrackerConfig.assignment)")
-    if cfg.use_appearance:
-        raise NotImplementedError("appearance association (ReID) is not ported")
+    appearance = bool(cfg.use_appearance) and det_embed is not None
     T = state.mean.shape[0]
     D = det_boxes.shape[0]
     dev = det_boxes.device
@@ -125,9 +136,17 @@ def step(
 
     iou_c = 1.0 - box_iou_matrix(track_boxes, det_boxes)  # (T, D)
 
+    # appearance distance, shared by stages 1 and 3: cosine distance / 2,
+    # 1 for distant boxes or dissimilar appearance
+    if appearance:
+        emb_d = 0.5 * (1.0 - state.embed @ det_embed.T)
+        emb_d = torch.where((emb_d > cfg.appearance_thresh) | (iou_c > cfg.proximity_thresh), 1.0, emb_d)
+
     # stage 1: confirmed pool x high detections
     rows1 = state.active & state.confirmed
     cost1 = _fuse_score(iou_c, det_conf) if cfg.fuse_first_associate else iou_c
+    if appearance:
+        cost1 = torch.minimum(cost1, emb_d)
     m1, used_det1 = masked_auction(cost1, rows1, high, cfg.match_thresh)
     # stage 2: still-tracked unmatched x low detections, raw IoU gate 0.5
     rows2 = rows1 & was_tracked & (m1 < 0)
@@ -135,7 +154,10 @@ def step(
     # stage 3: tentative tracks x leftover high detections, fused gate 0.7
     rows3 = state.active & ~state.confirmed
     cols3 = high & ~used_det1
-    m3, used_det3 = masked_auction(_fuse_score(iou_c, det_conf), rows3, cols3, 0.7)
+    cost3 = _fuse_score(iou_c, det_conf)
+    if appearance:
+        cost3 = torch.minimum(cost3, emb_d)
+    m3, used_det3 = masked_auction(cost3, rows3, cols3, 0.7)
 
     match = torch.where(m1 >= 0, m1, torch.where(m2 >= 0, m2, m3))
     matched = match >= 0
@@ -152,6 +174,12 @@ def step(
     cls = torch.where(matched, (sel @ det_cls.to(sel.dtype)).to(torch.int64), state.cls)
     confirmed = state.confirmed | matched
     lost_for = torch.where(matched, 0, state.lost_for + 1)
+
+    embed = state.embed
+    if appearance:
+        ema = cfg.embed_momentum * embed + (1.0 - cfg.embed_momentum) * (sel @ det_embed)
+        norm = torch.clamp(torch.linalg.vector_norm(ema, dim=-1, keepdim=True), min=1e-9)
+        embed = torch.where(matched[:, None], ema / norm, embed)
 
     # lifecycle: drop stale lost tracks and unmatched tentatives
     active = state.active & (matched | (state.confirmed & (lost_for <= cfg.track_buffer)))
@@ -178,6 +206,8 @@ def step(
     lost_for = torch.where(spawn, 0, lost_for)
     active = active | spawn
     start_frame = torch.where(spawn, frame, state.start_frame)
+    if appearance:
+        embed = torch.where(spawn[:, None], pair @ det_embed, embed)
 
     # duplicate suppression (boxmot remove_duplicate_stracks): a tracked and
     # a lost track with IoU distance < 0.15 -> the shorter-lived one goes
@@ -200,6 +230,7 @@ def step(
         track_id=track_id,
         conf=conf,
         cls=cls,
+        embed=embed,
         start_frame=start_frame,
         next_id=state.next_id + n_new,
         frame=frame,

@@ -97,6 +97,9 @@ def test_builtin_slice_with_calibration_matches_jax():
 
 
 def test_check_config_accepts_calibration_not_the_features_gmc():
+    """Calibration and, since the features GMC is ported, ``gmc="features"``
+    pass the check; an unknown flow backend still raises."""
     tt.check_config(TCFG.replace(calibration=True))
-    with pytest.raises(NotImplementedError, match="features GMC"):
-        tt.check_config(TCFG.replace(tracker=dataclasses.replace(TCFG.tracker, gmc="features")))
+    tt.check_config(TCFG.replace(tracker=dataclasses.replace(TCFG.tracker, gmc="features")))
+    with pytest.raises(ValueError, match="flow backend"):
+        tt.check_config(TCFG.replace(flow=dataclasses.replace(TCFG.flow, backend="pallas")))

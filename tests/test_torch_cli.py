@@ -95,7 +95,10 @@ def test_cli_main_decodes_the_clip_and_writes_its_outputs(tmp_path, monkeypatch,
     monkeypatch.setattr(
         tmain,
         "CoordinateModel",
-        lambda device=None: TModel(keypoint_fn=oracle_keypoint_fn(sc), detector_fn=oracle_detector_fn(sc), device=device),
+        lambda reid_checkpoint=None, device=None: TModel(
+            keypoint_fn=oracle_keypoint_fn(sc), detector_fn=oracle_detector_fn(sc), reid_checkpoint=reid_checkpoint,
+            device=device,
+        ),
     )
     tmain.main(["--video_path", str(tmp_path / "clip.mp4"), "--fps", "8", "--device", "cpu", "--profile"])
     out = tmp_path / "output" / "clip"
@@ -108,15 +111,53 @@ def test_cli_main_decodes_the_clip_and_writes_its_outputs(tmp_path, monkeypatch,
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (["--keypoint_weights", "k.pth"], "item 5"),
-        (["--detector_weights", "d.pt"], "item 5"),
-        (["--reid_weights", "r.pt"], "item 6"),
-        (["--segment_frames", "16"], "item 7"),
+        (["--keypoint_weights", "k.pth"], "item 3"),
+        (["--detector_weights", "d.pt"], "item 3"),
+        (["--reid_weights", "r.msgpack"], "item 3"),
+        (["--segment_frames", "16"], "item 4"),
     ],
 )
 def test_cli_flags_that_are_not_ported_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tmain.main(["--video_path", "missing.mp4", *flags])
+
+
+def test_cli_reid_weights_load_a_torchreid_state_dict(tmp_path, monkeypatch):
+    """``--reid_weights r.pt``, a torchreid OSNet-x0.25 state dict, turns
+    appearance association on with those weights (the use_appearance=None
+    rule) and the run writes its outputs."""
+    import dataclasses
+
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.io.video import write_video
+
+    from .torch_graphs import OSNetTorch, randomize_
+
+    ref = randomize_(OSNetTorch("x0_25"), seed=1)
+    torch.save(ref.state_dict(), tmp_path / "r.pt")
+    sc = make_scene(num_frames=8, width=320, height=192, num_players=4, fps=8, seed=2)
+    write_video(list(sc.frames), str(tmp_path / "clip.mp4"), 8)
+    cfg = DEFAULT_CONFIG.replace(
+        detector=dataclasses.replace(DEFAULT_CONFIG.detector, use_bf16=False),
+        tracker=dataclasses.replace(DEFAULT_CONFIG.tracker, reid_slots=8),
+    )
+    built = []
+
+    def model(reid_checkpoint=None, device=None):
+        built.append(TModel(config=cfg, keypoint_fn=oracle_keypoint_fn(sc), detector_fn=oracle_detector_fn(sc),
+                            reid_checkpoint=reid_checkpoint, device=device))
+        return built[-1]
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tmain, "CoordinateModel", model)
+    tmain.main(["--video_path", str(tmp_path / "clip.mp4"), "--fps", "8", "--device", "cpu",
+                "--reid_weights", str(tmp_path / "r.pt")])
+    (m,) = built
+    assert m.config.tracker.use_appearance and m.reid_model is not None
+    x = torch.randn(2, 3, 256, 128, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        torch.testing.assert_close(m.reid_model(x), ref(x), rtol=0, atol=1e-4)
+    assert sorted(os.listdir(tmp_path / "output" / "clip")) == sorted(JSON_FILES + ["annotated.mp4"])
 
 
 _NO_PANDAS_NO_CV2 = r"""

@@ -257,10 +257,16 @@ _PROBE = """
 import importlib, pkgutil, sys
 import numpy as np
 import torch
+torch.set_num_threads(2)
 import eagle_tpu_torch
 import eagle_tpu_torch.main
+import eagle_tpu_torch.models.bridge
+import eagle_tpu_torch.models.osnet
+import eagle_tpu_torch.ops.corners
+import eagle_tpu_torch.ops.embed
 import eagle_tpu_torch.ops.kmeans
 import eagle_tpu_torch.pipeline.processor
+from eagle_tpu_torch.config import DEFAULT_CONFIG
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 for m in pkgutil.walk_packages(eagle_tpu_torch.__path__, "eagle_tpu_torch."):
     importlib.import_module(m.name)
@@ -283,6 +289,12 @@ def detections(batch):
 
 res = CoordinateModel(keypoint_fn=keypoints, detector_fn=detections, device="cpu").get_coordinates(frames, 3)
 assert sorted(res) == [0, 1, 2], res
+# the reference's tracker: OSNet ReID (seeded random weights) and the features GMC
+tracker = DEFAULT_CONFIG.tracker.__class__(use_appearance=True, embed_dim=32, reid_slots=2, gmc="features")
+model = CoordinateModel(config=DEFAULT_CONFIG.replace(tracker=tracker), keypoint_fn=keypoints,
+                        detector_fn=detections, device="cpu")
+assert model.reid_model is not None
+assert sorted(model.get_coordinates(frames, 3)) == [0, 1, 2]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "eagle_tpu", "pandas", "cv2"))
 assert not bad, bad
 print("hermetic")

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the fused CUDA flow kernel against its plain
-version (frames whose rows are not whole 16-byte chunks included), its
-one launch a call, its input checks and its launch count.
+version (frames whose rows are not whole 16-byte chunks included, and the
+features GMC's 240 grid corners of a frame pair), its one launch a call,
+its input checks and its launch count.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -159,4 +160,35 @@ def test_kernel_reads_uploaded_padded_frames_in_place(dev, hw):
     np.testing.assert_array_equal(up.cpu().numpy(), np.stack([prev_np, curr_np]))
     ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
     np.testing.assert_array_equal(ks, ps)
+    np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
+
+
+@pytest.mark.parametrize("canvas", [False, True])
+def test_kernel_matches_plain_on_grid_corners(dev, canvas):
+    """The features GMC's flow step: the 240 grid corners of a 1280x720
+    frame pair, on the raw frames as the identity path uploads them or on
+    the 544x960 canvas of the 4:2:0 prescale and decode.  Neither frame is
+    staged into a pitched copy, and the launch counts as one at K = 240."""
+    from eagle_tpu_torch.ops.corners import grid_corners
+    from eagle_tpu_torch.ops.preprocess import compute_work_geometry, host_letterbox_i420, i420_to_bgr
+
+    frames = np.stack(_frames((720, 1280)))
+    if canvas:
+        geom = compute_work_geometry((720, 1280), 960)
+        x = i420_to_bgr(torch.from_numpy(host_letterbox_i420(frames, geom)).to(dev))
+        assert x.shape[1:3] == (544, 960)
+    else:
+        x = of.upload_frames(frames, dev)
+    prev, curr = x[0], x[1]
+    assert all(of._pitched(f)[0].data_ptr() == f.data_ptr() for f in (prev, curr))
+    pts, valid = grid_corners(prev)
+    assert pts.shape == (240, 2) and int(valid.sum()) >= 100
+    before = of.launches_by_k.get(240, 0)
+    kp, ks = of.lk_flow(prev, curr, pts, valid)
+    pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
+    torch.cuda.synchronize()
+    assert of.launches_by_k.get(240, 0) == before + 1
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    np.testing.assert_array_equal(ks, ps)
+    assert ps.sum() >= 100
     np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)

@@ -4,7 +4,10 @@ Kalman filter against the JAX package on the same detection streams.
 Tolerances: track ids, emit masks, matched detection indices and classes
 bit-equal frame by frame; boxes within 1e-2 px and confidences within
 1e-6 (float32 Kalman filters with another summation order); auction
-matches bit-equal."""
+matches bit-equal.  With appearance embeddings: ids, active and emit
+masks and matched detections bit-equal, Kalman means within 1e-4 (the
+relative float32 error of the means' pixel values) and track embeddings
+within 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -103,3 +106,69 @@ def test_kalman_matches_jax():
     mt, ct = tk.kf_update(mt, ct, t(z))
     np.testing.assert_allclose(n(mt), mj, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(n(ct), cj, rtol=1e-4, atol=1e-6)
+
+
+def _crossing_stream(n_frames: int = 24, e: int = 16, seed: int = 0):
+    """Six players in a scripted clip: two stand 12 px apart and jitter by
+    5 px (their boxes overlap, so IoU alone cannot tell them apart), two
+    cross, detections come in shuffled slots with dropouts and dips into
+    the BYTE low band, and each player's embedding is its own unit vector
+    plus noise."""
+    rng = np.random.default_rng(seed)
+    start = np.array([[300, 200], [312, 204], [150, 380], [450, 300], [700, 150], [760, 420]], float)
+    vel = np.array([[0, 0], [0, 0], [10, -3], [-10, 3], [1, 2], [-2, 1]], float)
+    ident = rng.normal(size=(6, e))
+    ident /= np.linalg.norm(ident, axis=1, keepdims=True)
+    stream = []
+    for f in range(n_frames):
+        b = np.zeros((32, 4), np.float32)
+        c = np.zeros(32, np.float32)
+        k = np.zeros(32, np.int32)
+        v = np.zeros(32, bool)
+        emb = np.zeros((32, e), np.float32)
+        slots = rng.permutation(10)
+        for p in range(6):
+            if f > 1 and rng.uniform() < 0.08:
+                continue
+            x, y = start[p] + vel[p] * f + (rng.normal(0, 5, 2) if p < 2 else 0)
+            s = slots[p]
+            b[s] = (x - 18, y - 80, x + 18, y)
+            c[s] = 0.9 if rng.uniform() > 0.12 or f < 3 else rng.uniform(0.2, 0.45)
+            v[s] = True
+            z = ident[p] + rng.normal(0, 0.08, e)
+            emb[s] = z / np.linalg.norm(z)
+        stream.append((b, c, k, v, emb))
+    return stream
+
+
+def test_tracker_with_appearance_matches_jax():
+    stream = _crossing_stream()
+    jcfg = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16)
+    tcfg = TrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16)
+    iou_only = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=False)
+    jstep = jax.jit(jbs.step, static_argnames=("cfg",))
+    js, js_iou = jbs.init_state(24, 16), jbs.init_state(24, 16)
+    ts = tbs.init_state(24, 16)
+    changed = 0  # frames where appearance changes the JAX tracker's association
+    for f, (b, c, k, v, emb) in enumerate(stream):
+        dets = (jnp.asarray(b), jnp.asarray(c), jnp.asarray(k), jnp.asarray(v))
+        js, jo = jstep(js, *dets, cfg=jcfg, det_embed=jnp.asarray(emb))
+        js_iou, jo_iou = jstep(js_iou, *dets, cfg=iou_only, det_embed=jnp.asarray(emb))
+        ts, to = tbs.step(ts, t(b), t(c), t(k).long(), t(v), tcfg, det_embed=t(emb))
+        valid = np.asarray(jo.valid)
+        pairs = {(d, i) for d, i in zip(np.asarray(jo.det_idx)[valid], np.asarray(jo.track_id)[valid])}
+        iou_valid = np.asarray(jo_iou.valid)
+        changed += pairs != {(d, i) for d, i in zip(np.asarray(jo_iou.det_idx)[iou_valid],
+                                                     np.asarray(jo_iou.track_id)[iou_valid])}
+        np.testing.assert_array_equal(n(to.valid), valid, err_msg=f"frame {f}")
+        np.testing.assert_array_equal(n(ts.active), np.asarray(js.active), err_msg=f"frame {f}")
+        active = np.asarray(js.active)
+        np.testing.assert_array_equal(n(ts.track_id)[active], np.asarray(js.track_id)[active])
+        for name in ("track_id", "det_idx"):
+            np.testing.assert_array_equal(
+                n(getattr(to, name))[valid], np.asarray(getattr(jo, name))[valid], err_msg=f"frame {f} {name}"
+            )
+        np.testing.assert_allclose(n(ts.mean)[active], np.asarray(js.mean)[active], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(n(ts.embed)[active], np.asarray(js.embed)[active], atol=1e-5)
+    assert int(ts.next_id) == int(js.next_id)
+    assert changed >= 5, "the clip must be one where appearance changes the association"

@@ -54,3 +54,37 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def osnet_params(seed: int, feature_dim: int = 512, variant: str = "x0_25"):
+    """A JAX OSNet parameter pytree drawn with numpy (the shapes of
+    ``eagle_tpu.models.osnet.init_params``, no eager JAX work): kernels
+    normal(0, sqrt(2 / fan_in)), small random biases and random BatchNorm
+    statistics (so that a bridge that drops or swaps them fails)."""
+    import jax
+
+    from eagle_tpu.models import osnet
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: osnet.init_params(jax.random.key(0), variant, feature_dim=feature_dim))
+
+    def draw(tree):
+        if isinstance(tree, dict):
+            if set(tree) == {"scale", "bias", "mean", "var"}:
+                c = tuple(tree["scale"].shape)
+                return {
+                    "scale": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                    "bias": rng.normal(0.0, 0.05, c).astype(np.float32),
+                    "mean": rng.normal(0.0, 0.05, c).astype(np.float32),
+                    "var": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                }
+            return {k: draw(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [draw(v) for v in tree]
+        shape = tuple(tree.shape)
+        if len(shape) == 1:
+            return rng.normal(0.0, 0.05, shape).astype(np.float32)
+        fan_in = int(np.prod(shape[:-1]))
+        return rng.normal(0.0, (2.0 / fan_in) ** 0.5, shape).astype(np.float32)
+
+    return draw(shapes)
