@@ -53,7 +53,26 @@ Phases (any failure exits non-zero, nothing is caught):
    zeroed just before and read just after (K = 57 and K = 240 apart),
    with its rate and stage milliseconds, ``reid`` among them; (d) the bf16
    OSNet's embeddings against its float32 self on one piece;
-7. with ``--profile``: one more run of the slice (24 frames) under
+7. stream: (a) the 24-frame oracle clip streamed on the card at
+   ``chunk_frames=16`` in ragged segments (blocks of 16 + 8) equals the
+   card's one-shot run exactly and the port's CPU stream within the REF_*
+   tolerances, with no frame staged into a pitched copy; (b) the
+   full-width slice's 48 frames streamed with the slice model's weights in
+   segments 10 + 23 + 15 (blocks of 32 + 16) equal the slice phase's
+   one-shot result exactly, no frame staged, launch counters zeroed just
+   before and read just after (its fps, stage ms, launches and the
+   on-demand rounds of both runs printed); (c) the peak device memory of
+   the same model streaming 96 frames in blocks of 32 must be within 10%
+   of its 48-frame stream's (printed beside the 48-frame one-shot's);
+   (d) ``serve_clips(overlap=True)`` over three 16-frame clips of the
+   process phase's match with oracle models equals a sequential
+   ``get_coordinates`` + ``Processor`` of each clip on the card (clips a
+   second of both orders printed); (e) the slice's HRNet-W48 and YOLOv8-l
+   written as the reference's ``.pth`` and an ultralytics ``.pt``
+   (``tests/torch_parity.py``) load back through
+   ``CoordinateModel(keypoint_checkpoint=, detector_checkpoint=)`` with
+   bit-equal state dicts and the same ``get_coordinates`` on 16 frames;
+8. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
@@ -118,6 +137,9 @@ REF_BOUNDARY_ATOL = 1e-2
 REF_TRUTH_PX = 6.0
 #: frames of the profiled run (--profile)
 PROFILE_FRAMES = 24
+#: the stream phase's oracle clip, and the length of each served clip
+STREAM_REF_FRAMES = 24
+SERVE_CLIP = 16
 #: the process phase's match (make_match): outfield players a team, drawn
 #: in the two kits of the JAX package's synthetic scenes (BGR red and
 #: blue), plus one goalkeeper a team (yellow, purple)
@@ -724,7 +746,7 @@ def phase_slice(frames):
           f"(kept at the keep threshold {n_kept:.2f}); objects reported {n_obj:.2f}, of which "
           f"tracked players and goalkeepers {n_tracked:.2f}; keypoints {n_kp:.2f}; frames with "
           f"boundaries {n_h}")
-    return launches, model
+    return launches, model, res
 
 
 # ---------------------------------------------------------------------------
@@ -1129,6 +1151,205 @@ def phase_process(frames, pts):
         print("process: no OpenCV on this machine: .mp4 decoding, rendering and annotated.mp4 not run")
 
 
+# ---------------------------------------------------------------------------
+# streaming, serving and the checkpoint loaders
+# ---------------------------------------------------------------------------
+
+
+def stream_run(model, segments, **kw) -> tuple[dict, list[int]]:
+    """``model.stream_coordinates`` over ``segments``: (its blocks joined,
+    the block lengths)."""
+    blocks = list(model.stream_coordinates(segments, FPS, **kw))
+    return {k: v for b in blocks for k, v in b.items()}, [len(b) for b in blocks]
+
+
+def stream_oracle(frames, pts) -> None:
+    """(a) The oracle clip streamed in ragged segments (7 + 12 + 5 frames,
+    blocks of 16 + 8): on the card it equals the card's one-shot exactly
+    and the port's CPU stream by coords_mismatch, and stages no frame."""
+    from eagle_tpu_torch import DEFAULT_CONFIG
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    clip = frames[:STREAM_REF_FRAMES]
+    segments = [clip[:7], clip[7:19], clip[19:]]
+    cfg = DEFAULT_CONFIG.replace(chunk_frames=16)
+
+    def model(dev):
+        kp_fn, det_fn, _ = oracle_models(clip, pts)
+        return CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
+
+    one = model("cuda").get_coordinates(clip, FPS, num_keypoint_detection=6)
+    of.staged, launches0 = 0, of.launches
+    card, blocks = stream_run(model("cuda"), segments, num_keypoint_detection=6)
+    launches, staged = of.launches - launches0, of.staged
+    cpu, _ = stream_run(model("cpu"), segments, num_keypoint_detection=6)
+    if blocks != [16, 8]:
+        fail(f"the oracle stream ran blocks of {blocks}, expected [16, 8]")
+    if card != one:
+        fail("the oracle clip streamed on the card differs from its one-shot run on the card")
+    bad = coords_mismatch(card, cpu)
+    if bad:
+        fail(f"the oracle clip streamed on the card differs from the CPU stream: {bad}")
+    if staged or launches < len(clip) - 1:
+        fail(f"the oracle stream staged {staged} frames and launched the flow kernel {launches} times")
+    print(f"stream (a): oracle clip of {len(clip)} frames in blocks {blocks}: card stream == card one-shot, "
+          f"== CPU stream; lk_flow launches {launches}, frames staged {staged}")
+
+
+def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
+    """(b) The full-width slice streamed in segments 10 + 23 + 15 (blocks
+    32 + 16) with the slice model's weights: equal to the slice phase's
+    one-shot, no frame staged; fps, stage ms, launches, on-demand rounds.
+    (c) Its peak device memory over 96 frames in blocks of 32 against 48
+    frames, beside the 48-frame one-shot's.  Returns (the kernel line's
+    stream fields, printed readings)."""
+    import copy
+
+    import torch
+
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+
+    streamer = copy.copy(model)  # the same modules, blocks cut at 16-frame multiples
+    streamer.config = model.config.replace(chunk_frames=16)
+    streamer.ondemand_rounds = 0
+    stream_run(streamer, [frames[:16]], num_keypoint_detection=3)  # warm-up
+    torch.cuda.synchronize()
+    timer = StageTimer(streamer.device, sync=True)
+    streamer.ondemand_rounds = 0
+    of.launches, of.staged = 0, 0
+    t0 = time.perf_counter()
+    res, blocks = stream_run(streamer, [frames[:10], frames[10:33], frames[33:]], num_keypoint_detection=3,
+                             timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, staged, rounds = of.launches, of.staged, streamer.ondemand_rounds
+    if blocks != [32, 16]:
+        fail(f"the slice streamed in blocks of {blocks}, expected [32, 16]")
+    if res != one_shot:
+        bad = [i for i in one_shot if res.get(i) != one_shot[i]]
+        fail(f"the streamed full-width slice differs from its one-shot run at frames {bad[:10]}")
+    if staged or launches < len(frames) - 1:
+        fail(f"the streamed slice staged {staged} frames and launched the flow kernel {launches} times")
+    model.ondemand_rounds = 0
+    model.get_coordinates(frames, FPS, num_keypoint_detection=3)
+    one_rounds = model.ondemand_rounds
+    stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
+    print(f"stream (b): full-width slice, {len(frames)} frames in blocks {blocks} = {len(frames) / wall:.2f} fps "
+          f"({wall:.3f} s); == the one-shot slice; stage ms {json.dumps(stages)}; lk_flow launches {launches}; "
+          f"frames staged {staged}; on-demand rounds {rounds} streamed, {one_rounds} one-shot")
+
+    def peak(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    long, _ = make_frames(2 * len(frames))
+    peaks = {
+        "one_shot_48": peak(lambda: model.get_coordinates(frames, FPS, num_keypoint_detection=3)),
+        "stream_48": peak(lambda: stream_run(streamer, [frames[:32], frames[32:]], num_keypoint_detection=3)),
+        "stream_96": peak(lambda: stream_run(streamer, [long[i : i + 32] for i in range(0, len(long), 32)],
+                                             num_keypoint_detection=3)),
+    }
+    gib = {k: round(v / 2**30, 4) for k, v in peaks.items()}
+    print(f"stream (c): peak device memory (GiB, max_memory_allocated) one-shot 48 frames {gib['one_shot_48']}, "
+          f"stream 48 frames {gib['stream_48']}, stream 96 frames {gib['stream_96']} (blocks of 32)")
+    if peaks["stream_96"] > 1.1 * peaks["stream_48"]:
+        fail("the 96-frame stream's peak device memory is more than 10% over the 48-frame stream's")
+    return {"stream_launches": launches, "stream_staged": staged}, {"fps": len(frames) / wall, "peaks": gib}
+
+
+def stream_serve(frames, pts) -> None:
+    """(d) ``serve_clips(overlap=True)`` over three 16-frame clips of the
+    process phase's match with oracle models on the card: each result
+    equals a sequential ``get_coordinates`` + ``Processor`` of its clip on
+    the card; clips a second of both orders."""
+    import torch
+
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from eagle_tpu_torch.pipeline.processor import Processor
+    from eagle_tpu_torch.pipeline.serve import serve_clips
+
+    match, people, _ = make_match(frames)
+    clips = [match[i : i + SERVE_CLIP] for i in range(0, len(match), SERVE_CLIP)]
+
+    def model():
+        kp_fn, det_fn, _ = oracle_models(match, pts, people)
+        return CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
+
+    seq_model = model()
+    t0 = time.perf_counter()
+    want = []
+    for clip in clips:
+        coords = seq_model.get_coordinates(clip, FPS, num_keypoint_detection=3)
+        proc = Processor(coords, clip, FPS, device="cuda")
+        table, mapping = proc.process_data()
+        want.append((coords, table, mapping, proc.format_data(table)))
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = list(serve_clips(model(), iter(clips), FPS, num_keypoint_detection=3, overlap=True))
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    if len(got) != len(clips):
+        fail(f"serve_clips yielded {len(got)} results for {len(clips)} clips")
+    for k, (res, (coords, table, mapping, records)) in enumerate(zip(got, want)):
+        if res.coordinates != coords or not tables_equal(res.table, table) or res.team_mapping != mapping or (
+            res.formatted != records
+        ):
+            fail(f"served clip {k} differs from its sequential run on the card")
+    print(f"stream (d): serve_clips(overlap=True) over {len(clips)} clips of {SERVE_CLIP} frames == sequential on "
+          f"the card; {len(clips) / seq_wall:.3f} clips/s sequential, {len(clips) / serve_wall:.3f} clips/s served")
+
+
+def stream_loaders(model, frames) -> None:
+    """(e) The slice's full-width HRNet-W48 and YOLOv8-l written as the
+    reference's ``.pth`` and an ultralytics ``.pt`` (tests/torch_parity.py,
+    torch and numpy only), loaded back by ``CoordinateModel(*_checkpoint=)``
+    on the card: state dicts bit-equal, ``get_coordinates`` on 16 frames
+    equal to the slice model's."""
+    import tempfile
+
+    import torch
+
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from tests.torch_parity import hrnet_reference_state_dict, yolov8_ultralytics_state_dict
+
+    with tempfile.TemporaryDirectory() as d:
+        kp_path, det_path = os.path.join(d, "keypoints_main.pth"), os.path.join(d, "detector.pt")
+        torch.save(hrnet_reference_state_dict(model.keypoint_model), kp_path)
+        torch.save(yolov8_ultralytics_state_dict(model.detector_model), det_path)
+        sizes = os.path.getsize(kp_path), os.path.getsize(det_path)
+        loaded = CoordinateModel(config=model.config, keypoint_checkpoint=kp_path, detector_checkpoint=det_path,
+                                 device="cuda")
+    for name in ("keypoint_model", "detector_model"):
+        got, want = getattr(loaded, name).state_dict(), getattr(model, name).state_dict()
+        if list(got) != list(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            fail(f"the {name} loaded from its checkpoint differs from the slice model's weights")
+    clip = frames[:16]
+    if loaded.get_coordinates(clip, FPS, num_keypoint_detection=3) != model.get_coordinates(
+        clip, FPS, num_keypoint_detection=3
+    ):
+        fail("get_coordinates with the loaded checkpoints differs from the slice model's")
+    print(f"stream (e): HRNet-W48 .pth ({sizes[0]} B) and YOLOv8-{loaded.detector_model.variant} ultralytics .pt "
+          f"({sizes[1]} B) load back bit-equal on the card; get_coordinates on {len(clip)} frames == the slice model's")
+
+
+def phase_stream(frames, pts, model, one_shot: dict) -> dict:
+    """Streaming, serving and the loaders on the card: (a) the oracle
+    stream, (b) the full-width slice streamed, (c) its peak memory,
+    (d) serve_clips, (e) the checkpoints.  Returns the kernel line's
+    stream fields."""
+    stream_oracle(frames, pts)
+    fields, _ = stream_slice(model, frames, one_shot)
+    stream_serve(frames, pts)
+    stream_loaders(model, frames)
+    return fields
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     total, end = 0.0, -np.inf
@@ -1242,10 +1463,11 @@ def main() -> int:
     frames, pts = make_frames(N_FRAMES)
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
-    flow["launches"], model = phase_slice(frames)
+    flow["launches"], model, slice_res = phase_slice(frames)
     tracker_fields, tracker = phase_tracker(frames, pts, model)
     flow.update(tracker_fields)
     phase_process(frames, pts)
+    flow.update(phase_stream(frames, pts, model, slice_res))
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")

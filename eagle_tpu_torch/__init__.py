@@ -11,12 +11,16 @@ layout mirrors the reference so that each counterpart is easy to find:
   kernel (``csrc/lk_flow.cu``, Lucas-Kanade optical flow) behind
   :func:`eagle_tpu_torch.ops.optical_flow.lk_flow`;
 - :mod:`eagle_tpu_torch.models` -- HRNet-W48, YOLOv8 and the OSNet-x0.25
-  ReID network as ``nn.Module``s, plus the weight bridge from the JAX
-  parameter pytrees;
+  ReID network as ``nn.Module``s, the weight bridge from the JAX
+  parameter pytrees, and the checkpoint loaders (torch state dicts,
+  ``.onnx``, ``.msgpack``);
 - :mod:`eagle_tpu_torch.track` -- the BoT-SORT tracker, with appearance
   association;
-- :mod:`eagle_tpu_torch.pipeline` -- the temporal step and
-  ``CoordinateModel.get_coordinates``.
+- :mod:`eagle_tpu_torch.pipeline` -- the temporal step,
+  ``CoordinateModel.get_coordinates`` and ``stream_coordinates``, the
+  ``Processor`` and ``serve_clips``;
+- :mod:`eagle_tpu_torch.io` -- video decode and encode (OpenCV), the
+  JSON writers.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise rather than fall back.

@@ -131,13 +131,22 @@ def letterbox_i420(
     return out
 
 
+#: frames a crop call holds at once (:func:`crops_linear_u8c3`)
+CROP_FRAME_GROUP = 64
+
+
 def crops_linear_u8c3(frames, frame_idx: np.ndarray, boxes: np.ndarray, grid_hw) -> np.ndarray:
     """Integer-box crops resized to ``grid_hw`` (gh, gw) exactly as
     ``cv2.resize(frame[y1:y2, x1:x2], (gw, gh), INTER_LINEAR)`` gives them:
     ``frames`` a sequence (or (F, H, W, 3) stack) of equal-size uint8 BGR
     frames, ``frame_idx`` (B,), ``boxes`` (B, 4) integer x1, y1, x2, y2
     inside the frame with x2 > x1, y2 > y1.  Returns (B, gh, gw, 3)
-    uint8."""
+    uint8.
+
+    The frames the crops read are taken in ascending order, at most
+    ``CROP_FRAME_GROUP`` of them alive at a time, so a lazy frame source
+    over a whole match (:class:`eagle_tpu_torch.io.video.VideoFrameSource`)
+    decodes forward and holds one group."""
     lib = _load_prescale()
     gh, gw = grid_hw
     fi = np.ascontiguousarray(frame_idx, np.int32)
@@ -151,15 +160,21 @@ def crops_linear_u8c3(frames, frame_idx: np.ndarray, boxes: np.ndarray, grid_hw)
         and (fi >= 0).all()
     ):
         raise ValueError("crops_linear_u8c3 needs one frame index >= 0 and one non-empty box inside the frame a crop")
-    # only the frames a crop reads are made contiguous; `used` keeps them alive
-    used = {int(f): np.ascontiguousarray(frames[int(f)], np.uint8) for f in np.unique(fi)}
-    for f in used.values():
-        if f.shape != (h, w, 3):
-            raise ValueError(f"crops_linear_u8c3 needs (H, W, 3) frames of one size, got {f.shape}")
-    ptrs = (ctypes.c_void_p * (int(fi.max(initial=-1)) + 1))()
-    for i, f in used.items():
-        ptrs[i] = f.ctypes.data
+    del first
     out = np.empty((len(ib), gh, gw, 3), np.uint8)
-    if len(ib):
-        lib.crops_linear_u8c3(ptrs, w, fi, ib, len(ib), gh, gw, out, _default_threads())
+    frame_ids = np.unique(fi)
+    for g in range(0, len(frame_ids), CROP_FRAME_GROUP):
+        group = frame_ids[g : g + CROP_FRAME_GROUP]
+        # only the frames a crop reads are made contiguous; `used` keeps them alive
+        used = [np.ascontiguousarray(frames[int(f)], np.uint8) for f in group]
+        shapes = {f.shape for f in used} - {(h, w, 3)}
+        if shapes:
+            raise ValueError(f"crops_linear_u8c3 needs (H, W, 3) frames of one size, got {shapes.pop()}")
+        ptrs = (ctypes.c_void_p * len(used))(*(f.ctypes.data for f in used))
+        sel = np.flatnonzero((fi >= group[0]) & (fi <= group[-1]))
+        local = np.searchsorted(group, fi[sel]).astype(np.int32)
+        part = np.empty((len(sel), gh, gw, 3), np.uint8)
+        lib.crops_linear_u8c3(ptrs, w, local, np.ascontiguousarray(ib[sel]), len(sel), gh, gw, part, _default_threads())
+        out[sel] = part
+        del used, ptrs
     return out

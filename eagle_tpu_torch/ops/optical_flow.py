@@ -259,6 +259,8 @@ _lib = None
 launches = 0
 #: the same launches by their point count K (57 keypoints, 240 corners)
 launches_by_k: dict[int, int] = {}
+#: frames copied into a pitched buffer before a launch (:func:`_pitched`)
+staged = 0
 
 
 def _nvcc() -> str:
@@ -343,17 +345,32 @@ def upload_frames(frames: np.ndarray, device) -> torch.Tensor:
     return rows.view(n, h, w, 3)
 
 
+def carry_frame(frame: torch.Tensor) -> torch.Tensor:
+    """A copy of an (H, W, 3) uint8 frame in a buffer of its own with the
+    frame's row stride.  A frame kept after its clip's buffer is dropped
+    (the previous frame a stream hands to its next block) is then read in
+    place as that buffer's frames were (:func:`_pitched`), and the buffer
+    itself can be freed."""
+    h, w, _ = frame.shape
+    buf = torch.empty((h, frame.stride(0)), dtype=torch.uint8, device=frame.device)
+    rows = buf[:, : 3 * w].view(h, w, 3)
+    rows.copy_(frame)
+    return rows
+
+
 def _pitched(frame: torch.Tensor, pitch: int | None = None) -> tuple[torch.Tensor, int]:
     """(rows, pitch): the (H, W, 3) uint8 frame itself when its row stride
     and base address are multiples of 16 bytes (a contiguous frame whose 3W
-    is, or a frame of :func:`upload_frames`) and the stride is ``pitch``
-    where one is asked for; else a copy in a fresh (H, pitch) buffer,
-    ``pitch`` defaulting to :func:`_pitch` (the allocator's blocks are
-    512-byte aligned)."""
+    is, or a frame of :func:`upload_frames` or :func:`carry_frame`) and the
+    stride is ``pitch`` where one is asked for; else a copy in a fresh
+    (H, pitch) buffer, ``pitch`` defaulting to :func:`_pitch` (the
+    allocator's blocks are 512-byte aligned), counted in ``staged``."""
+    global staged
     h, w = frame.shape[:2]
     stride = frame.stride(0)
     if stride % 16 == 0 and frame.data_ptr() % 16 == 0 and pitch in (None, stride):
         return frame, stride
+    staged += 1
     pitch = pitch or _pitch(w)
     rows = torch.empty((h, pitch), dtype=torch.uint8, device=frame.device)
     rows[:, : 3 * w].view(h, w, 3).copy_(frame)

@@ -3,12 +3,16 @@
 
 ``CoordinateModel(...).get_coordinates(frames, fps)`` returns, per frame,
 the tracked players with pitch coordinates, the ball, the pitch keypoints
-and the visible-pitch boundaries, with the reference's output schema.  The
-path, one-shot and single-clip:
+and the visible-pitch boundaries, with the reference's output schema.
+``stream_coordinates(segments, fps)`` gives the same for a stream of
+segments in bounded memory, one block at a time.  The path, for a clip or a
+block:
 
 - host prescale: every frame is letterboxed once on the host to the
   detector's working canvas (544x960 for 720p) as packed 4:2:0 planes
-  (native C++), uploaded, and rebuilt as BGR on the card (BT.601 inverse);
+  (native C++; :meth:`CoordinateModel.prescale_clip` runs it alone, with no
+  device work, so a worker thread can), uploaded, and rebuilt as BGR on the
+  card (BT.601 inverse);
 - the detector (YOLOv8 + class-aware NMS) on every frame, in batches of
   ``PIECE``, and with ``TrackerConfig.use_appearance`` the appearance
   embeddings of the first ``reid_slots`` detections of each frame (OSNet
@@ -19,15 +23,18 @@ path, one-shot and single-clip:
   on-demand keypoint rounds (at most 3);
 - the float64 host assembly of the output dicts.
 
-Models: the built-in HRNet / YOLOv8 (seeded random weights, or the JAX
-package's parameter pytrees through ``keypoint_params=`` /
+Models: the built-in HRNet / YOLOv8 (seeded random weights, checkpoint
+files through ``keypoint_checkpoint=`` / ``detector_checkpoint=``, or the
+JAX package's parameter pytrees through ``keypoint_params=`` /
 ``detector_params=``), or injected callables ``keypoint_fn`` /
 ``detector_fn``, which receive original-resolution frames (and force the
-identity geometry).  The ReID OSNet-x0.25: a torchreid state dict
-(``reid_checkpoint=``, ``.pt`` / ``.pth``), a JAX pytree
-(``reid_params=``), or a seeded random init (with a warning).
-``TrackerConfig.use_appearance=None`` means on exactly when ReID weights
-are given.
+identity geometry).  The ReID OSNet-x0.25: a checkpoint
+(``reid_checkpoint=``), a JAX pytree (``reid_params=``), or a seeded random
+init (with a warning).  ``TrackerConfig.use_appearance=None`` means on
+exactly when ReID weights are given.  Checkpoint formats: ``.msgpack``
+(the JAX package's ``save_params``, any model), ``.onnx`` (the detector),
+else a torch state dict -- the reference's ``KeypointModel`` for HRNet,
+ultralytics' for YOLOv8, torchreid's for OSNet.
 
 The entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises.
@@ -39,7 +46,7 @@ import dataclasses
 import json
 import time
 import warnings
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -47,14 +54,17 @@ import torch
 from eagle_tpu_torch import pitch
 from eagle_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig, WorkGeometry
 from eagle_tpu_torch.models.bridge import hrnet_from_jax, osnet_from_jax, yolov8_from_jax
+from eagle_tpu_torch.models.checkpoint import load_params
+from eagle_tpu_torch.models.convert import load_hrnet_checkpoint, yolov8_from_torch
 from eagle_tpu_torch.models.hrnet import init_hrnet
+from eagle_tpu_torch.models.onnx_import import load_yolov8_onnx
 from eagle_tpu_torch.models.osnet import OSNet, embed_boxes, init_osnet, osnet_from_torch
 from eagle_tpu_torch.models.yolov8 import CONFIG_VARIANTS, init_yolov8
 from eagle_tpu_torch.ops.embed import HIST_BINS, histogram_embeddings
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
 from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.ops.nms import batched_nms
-from eagle_tpu_torch.ops.optical_flow import upload_frames
+from eagle_tpu_torch.ops.optical_flow import carry_frame, upload_frames
 from eagle_tpu_torch.ops.preprocess import (
     compute_work_geometry,
     host_letterbox_i420,
@@ -77,6 +87,36 @@ PIECE = 16
 KP_BATCH = 8
 #: on-demand keypoint rounds (the reference's cap)
 ONDEMAND_ROUNDS = 3
+
+
+class PrescaledClip(NamedTuple):
+    """A clip's host prescale (:meth:`CoordinateModel.prescale_clip`), for
+    ``get_coordinates(prescaled=...)``: ``mode`` "canvas_planes" (``host``
+    holds the packed 4:2:0 working canvases, (N, canvas_h*3/2, canvas_w)
+    uint8) or "raw_bgr" (the frames themselves, contiguous), and ``n``
+    frames."""
+
+    mode: str
+    n: int
+    host: np.ndarray
+
+
+def load_keypoint_params(path: str):
+    """An HRNet checkpoint -> its parameter tree: ``.msgpack`` (the JAX
+    package's ``save_params``), else a ``.pth`` state dict of the
+    reference's ``KeypointModel``."""
+    return load_params(path) if path.endswith(".msgpack") else load_hrnet_checkpoint(path)
+
+
+def load_detector_params(path: str):
+    """A YOLOv8 checkpoint -> its parameter tree: ``.msgpack``, ``.onnx``
+    (an ultralytics export, fused or not), else an ultralytics state dict
+    (``torch.load(weights_only=True)``)."""
+    if path.endswith(".msgpack"):
+        return load_params(path)
+    if path.endswith(".onnx"):
+        return load_yolov8_onnx(path)
+    return yolov8_from_torch(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -137,8 +177,9 @@ def _reid_model(cfg: PipelineConfig, reid_params=None, reid_checkpoint: str | No
     """The appearance slot's OSNet (on the CPU), or None when the config
     embeds nothing or with the histogram.  Checks the embedder, that given
     weights will be used, and that the feature width is ``embed_dim``.
-    Weights: a torchreid state dict (``.pt`` / ``.pth``), a JAX pytree, or a
-    seeded random init with a warning."""
+    Weights: a checkpoint (``.msgpack``, else a torchreid state dict,
+    ``.pt`` / ``.pth``), a JAX pytree, or a seeded random init with a
+    warning."""
     tcfg = cfg.tracker
     if tcfg.use_appearance and tcfg.embedder not in ("osnet", "histogram"):
         raise ValueError(
@@ -159,12 +200,9 @@ def _reid_model(cfg: PipelineConfig, reid_params=None, reid_checkpoint: str | No
     if not osnet:
         return None
     bf16 = cfg.detector.use_bf16
-    if reid_checkpoint is not None:
-        if reid_checkpoint.endswith(".msgpack"):
-            raise NotImplementedError(
-                "reid_checkpoint: .msgpack checkpoints are not loadable yet (ROADMAP.md Queue 1, item 3, "
-                "checkpoint loaders); pass a torchreid .pt / .pth state dict"
-            )
+    if reid_checkpoint is not None and reid_checkpoint.endswith(".msgpack"):
+        model = osnet_from_jax(load_params(reid_checkpoint), use_bf16=bf16)
+    elif reid_checkpoint is not None:
         sd = torch.load(reid_checkpoint, map_location="cpu", weights_only=True)
         model = osnet_from_torch(sd, use_bf16=bf16)
     elif reid_params is not None:
@@ -196,6 +234,8 @@ class CoordinateModel:
         config: PipelineConfig | None = None,
         keypoint_params=None,
         detector_params=None,
+        keypoint_checkpoint: str | None = None,
+        detector_checkpoint: str | None = None,
         keypoint_fn: Callable | None = None,
         detector_fn: Callable | None = None,
         reid_params=None,
@@ -217,14 +257,17 @@ class CoordinateModel:
         self.keypoint_conf = keypoint_conf
         self.detector_conf = detector_conf
         self.seed = seed
-        #: temporal steps run (observability and tests)
+        #: temporal steps run, and on-demand keypoint rounds run (observability)
         self.frames_stepped = 0
+        self.ondemand_rounds = 0
 
         self._custom_kp = keypoint_fn is not None
         self._keypoint_fn = keypoint_fn
         self.keypoint_model = None
         if keypoint_fn is None:
             kcfg = cfg.keypoint
+            if keypoint_checkpoint is not None:
+                keypoint_params = load_keypoint_params(keypoint_checkpoint)
             if keypoint_params is not None:
                 model = hrnet_from_jax(keypoint_params, use_bf16=kcfg.use_bf16)
             else:
@@ -236,6 +279,8 @@ class CoordinateModel:
         self.detector_model = None
         if detector_fn is None:
             dcfg = cfg.detector
+            if detector_checkpoint is not None:
+                detector_params = load_detector_params(detector_checkpoint)
             if detector_params is not None:
                 model = yolov8_from_jax(detector_params, use_bf16=dcfg.use_bf16)
             else:
@@ -265,9 +310,9 @@ class CoordinateModel:
         16 bytes on the card: :func:`upload_frames`)."""
         return self._upload(frames, geom)[0]
 
-    def _upload(self, frames: np.ndarray, geom: WorkGeometry) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """:meth:`upload`, plus the uploaded packed 4:2:0 planes on the
-        working path (None otherwise)."""
+    def _prescale_mode(self, geom: WorkGeometry) -> str:
+        """What the host prescale makes for ``geom``: "canvas_planes" on the
+        working path, "raw_bgr" otherwise; raises on settings not ported."""
         fmt = resolve_upload_format(self.config.upload_format, geom.enabled)
         if self.config.prescale != "host":
             raise NotImplementedError("only the host prescale is ported (PipelineConfig.prescale)")
@@ -277,11 +322,43 @@ class CoordinateModel:
                     "the working-resolution path ships 4:2:0 planes; upload_format='bgr' "
                     "with a working geometry (a cv2 letterbox) is not ported"
                 )
-            planes = torch.from_numpy(host_letterbox_i420(frames, geom)).to(self.device)
-            return i420_to_bgr(planes), planes
+            return "canvas_planes"
         if fmt == "yuv420":
             raise NotImplementedError("4:2:0 transport of raw-resolution frames is not ported")
-        return upload_frames(frames, self.device), None
+        return "raw_bgr"
+
+    def _prescale(self, frames: np.ndarray, geom: WorkGeometry) -> PrescaledClip:
+        mode = self._prescale_mode(geom)
+        host = host_letterbox_i420(frames, geom) if mode == "canvas_planes" else np.ascontiguousarray(frames)
+        return PrescaledClip(mode, len(frames), host)
+
+    def prescale_clip(self, frames) -> PrescaledClip:
+        """The host prescale of a clip alone, as :meth:`get_coordinates`
+        would make it: no device work, so a worker thread can run it while
+        the previous clip's device phase runs (the native prescale releases
+        the GIL).  Pass the result as ``get_coordinates(...,
+        prescaled=...)``."""
+        frames = np.asarray(frames)
+        return self._prescale(frames, self._geometry((int(frames.shape[1]), int(frames.shape[2]))))
+
+    def _upload(
+        self, frames: np.ndarray, geom: WorkGeometry, prescaled: PrescaledClip | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """:meth:`upload` (of ``prescaled`` when given, which must be the
+        prescale of ``frames``), plus the uploaded packed 4:2:0 planes on
+        the working path (None otherwise)."""
+        mode = self._prescale_mode(geom)
+        if prescaled is None:
+            prescaled = self._prescale(frames, geom)
+        elif (prescaled.mode, prescaled.n) != (mode, len(frames)):
+            raise ValueError(
+                f"prescaled clip of {prescaled.n} frames as {prescaled.mode!r}, but this clip needs "
+                f"{len(frames)} frames as {mode!r}"
+            )
+        if mode == "canvas_planes":
+            planes = torch.from_numpy(prescaled.host).to(self.device)
+            return i420_to_bgr(planes), planes
+        return upload_frames(prescaled.host, self.device), None
 
     @torch.no_grad()
     def run_keypoints(self, x: torch.Tensor, geom: WorkGeometry, img_hw) -> torch.Tensor:
@@ -376,14 +453,20 @@ class CoordinateModel:
         )
 
     def _keypoints_at(self, idx: list[int], frames, dev_frames, geom, img_hw) -> np.ndarray:
-        """(len(idx), 57, 4) keypoint rows for the frames ``idx``."""
+        """(len(idx), 57, 4) keypoint rows for the frames ``idx``, in
+        batches of ``KP_BATCH`` with a short batch padded by repeating its
+        last frame, as the JAX package pads them: the model sees one batch
+        shape whatever the clip's length, so a frame's heatmaps do not
+        depend on how a stream cuts its blocks."""
         rows = []
         for i in range(0, len(idx), KP_BATCH):
-            sel = idx[i : i + KP_BATCH]
+            sel = list(idx[i : i + KP_BATCH])
+            real = len(sel)
+            sel += sel[-1:] * (KP_BATCH - real)
             if self._custom_kp:
-                rows.append(self._custom_keypoints(frames[sel]))
+                rows.append(self._custom_keypoints(frames[sel])[:real])
             else:
-                rows.append(self.run_keypoints(dev_frames[sel], geom, img_hw).cpu().numpy())
+                rows.append(self.run_keypoints(dev_frames[sel], geom, img_hw)[:real].cpu().numpy())
         return np.concatenate(rows) if rows else np.zeros((0, 57, 4), np.float32)
 
     # ------------------------------------------------------------------
@@ -397,21 +480,40 @@ class CoordinateModel:
         verbose: bool = False,
         calibration: bool = False,
         timer: StageTimer | None = None,
+        prescaled: PrescaledClip | None = None,
+        _stream_in: dict | None = None,
+        _stream_out: bool = False,
     ) -> dict:
         """{frame_idx: {"Coordinates", "Time", "Keypoints", "Boundaries"}}
         for BGR uint8 frames (N, H, W, 3).  ``timer`` (optional) collects
         per-stage wall-clock seconds (prescale, detector, reid when
-        appearance is on, keypoints, temporal, assembly)."""
+        appearance is on, keypoints, temporal, assembly).  ``prescaled``:
+        this clip's :meth:`prescale_clip`, made beforehand.
+
+        ``_stream_in`` / ``_stream_out`` are for :meth:`stream_coordinates`:
+        the clip continues a stream whose state ``_stream_in`` holds --
+        {"carry": the temporal carry after the previous block, "prev_frame":
+        its last device frame, "t": the global index of this clip's first
+        frame, "img_hw"} -- and with ``_stream_out`` the call returns
+        ``(result, state)``.  Every index the block sees is global: the
+        result's keys and "Time", the keypoint and homography cadences and
+        each frame's RANSAC draws."""
         timer = timer or StageTimer(self.device)
         frames = np.asarray(frames)
         n = len(frames)
         if n == 0:
-            return {}
+            return ({}, _stream_in) if _stream_out else {}
+        t0 = 0 if _stream_in is None else int(_stream_in["t"])
         cfg = self.config
         if calibration:
             cfg = cfg.replace(calibration=True)
         temporal.check_config(cfg)
         img_hw = (int(frames.shape[1]), int(frames.shape[2]))
+        if _stream_in is not None and tuple(_stream_in["img_hw"]) != img_hw:
+            raise ValueError(
+                f"a stream's blocks must share one resolution: this block is {img_hw[0]}x{img_hw[1]}, "
+                f"the stream's {_stream_in['img_hw'][0]}x{_stream_in['img_hw'][1]}"
+            )
         geom = self._geometry(img_hw)
         cfg = cfg.replace(work=geom)
         dev = self.device
@@ -422,7 +524,7 @@ class CoordinateModel:
         with timer("prescale"):
             dev_frames = planes = None
             if not (self._custom_kp and self._custom_det) or appearance:
-                dev_frames, planes = self._upload(frames, geom)
+                dev_frames, planes = self._upload(frames, geom, prescaled)
 
         # detections, and their embeddings, a piece at a time (a piece of
         # 1024 ReID crops of 256x128 is ~400 MB in float32)
@@ -439,7 +541,7 @@ class CoordinateModel:
             det_rows.append(rows)
         det = torch.cat(det_rows)
 
-        sampled = list(range(0, n, kp_interval))
+        sampled = [j for j in range(n) if (t0 + j) % kp_interval == 0]
         mem_kp = np.zeros((n, 57, 3), np.float32)
         mem_valid = np.zeros((n, 57), bool)
         # every attempted frame is memoized, found or not, so a barren
@@ -460,9 +562,11 @@ class CoordinateModel:
         # first-frame seeding: backward flow from the first sampled frame
         # with >= 4 keypoints.  On the 4:2:0 path the reference flows over
         # OpenCV's decode of the planes (its host copies), not over the
-        # device canvas, so the planes are decoded here as OpenCV does
+        # device canvas, so the planes are decoded here as OpenCV does.  A
+        # stream's later blocks arrive with a warm carry: only its first
+        # block seeds
         with timer("temporal"):
-            if mem_valid[0].sum() < 4:
+            if _stream_in is None and mem_valid[0].sum() < 4:
                 found = next((j for j in sampled if mem_valid[j].sum() >= 4), None)
                 if found:
                     seed_frames = dev_frames[: found + 1]
@@ -493,8 +597,10 @@ class CoordinateModel:
         # checkpoints: when the reference's on-demand keypoint detection
         # would fire (flow collapse on a non-cadence frame with no memo),
         # the flagged frames get model keypoints and the loop resumes at the
-        # first of them
-        carries = [temporal.init_carry(cfg, dev)] + [None] * n
+        # first of them.  A stream's block starts from the previous block's
+        # carry, and its first frame flows from that block's last frame;
+        # the rounds stay inside the block
+        carries = [temporal.init_carry(cfg, dev) if _stream_in is None else _stream_in["carry"]] + [None] * n
         outs: list = [None] * n
         start = 0
         for _round in range(ONDEMAND_ROUNDS):
@@ -502,18 +608,23 @@ class CoordinateModel:
                 mk = torch.from_numpy(mem_kp).to(dev)
                 mv = torch.from_numpy(mem_valid).to(dev)
                 for t in range(start, n):
+                    if t > 0:
+                        prev = dev_frames[t - 1]
+                    else:
+                        prev = dev_frames[0] if _stream_in is None else _stream_in["prev_frame"]
+                    tg = t0 + t
                     xs = temporal.FrameInputs(
                         frame_bgr=dev_frames[t],
-                        prev_frame_bgr=dev_frames[max(t - 1, 0)],
+                        prev_frame_bgr=prev,
                         model_kp=mk[t],
                         model_kp_valid=mv[t],
-                        is_kp_frame=t % kp_interval == 0,
-                        is_h_frame=t % h_interval == 0,
+                        is_kp_frame=tg % kp_interval == 0,
+                        is_h_frame=tg % h_interval == 0,
                         det_boxes=det[t, :, :4],
                         det_conf=det[t, :, 4],
                         det_cls=det[t, :, 5].to(torch.int64),
                         det_valid=det[t, :, 6] > 0.5,
-                        t=t,
+                        t=tg,
                         det_embed=det[t, :, 7:] if appearance else None,
                     )
                     carries[t + 1], outs[t] = temporal.temporal_step(carries[t], xs, cfg, gumbel_fn)
@@ -522,6 +633,7 @@ class CoordinateModel:
             flagged = np.flatnonzero(need & ~mem_attempted)
             if len(flagged) == 0:
                 break
+            self.ondemand_rounds += 1
             with timer("keypoints"):
                 packed = self._keypoints_at(flagged.tolist(), frames, dev_frames, geom, img_hw)
                 mem_kp[flagged] = packed[..., :3]
@@ -542,8 +654,115 @@ class CoordinateModel:
                 det_np[..., 6] > 0.5,
                 fps,
                 img_hw,
+                t_offset=t0,
             )
+        if _stream_out:
+            # the last frame in a buffer of its own (its clip's buffer is
+            # freed), with the clip's row stride: the next block's first
+            # flow step reads it in place
+            state = {"carry": carries[n], "prev_frame": carry_frame(dev_frames[n - 1]), "t": t0 + n, "img_hw": img_hw}
+            return res, state
         return res
+
+    def stream_coordinates(
+        self,
+        segments,
+        fps: int,
+        num_homography: int = 1,
+        num_keypoint_detection: int = 1,
+        verbose: bool = False,
+        calibration: bool = False,
+        prefetch: bool | str = "auto",
+        timer: StageTimer | None = None,
+    ):
+        """:meth:`get_coordinates` of a long stream in bounded memory (e.g.
+        :func:`eagle_tpu_torch.io.video.iter_video` over a whole match): one
+        block of frames is resident at a time.
+
+        ``segments``: an iterable of (N_i, H, W, 3) uint8 BGR arrays of any
+        lengths and one resolution.  Yields ``{global frame index: frame
+        dict}`` blocks whose union equals ``get_coordinates`` on the whole
+        stream: the temporal carry (keypoints, homography, retry state, the
+        tracker) and the previous frame for the flow pass from block to
+        block on the device, and the cadences run on the global index.
+        Segments are cut and joined into blocks of whole ``chunk_frames``
+        multiples, the last block excepted, where the JAX package cuts them.
+
+        Two horizons, as in the JAX package: the backward seed searches the
+        first block only, and the on-demand keypoint rounds stay inside the
+        block that flags them.
+
+        ``prefetch="auto"``: with a spare CPU core, a worker thread pulls
+        the next block from ``segments`` (the decode) and prescales it on
+        the host while this block runs on the device.  ``timer``
+        accumulates the stages over the blocks."""
+        chunk = self.config.chunk_frames
+        state: dict | None = None
+        buf: np.ndarray | None = None
+        timer = timer or StageTimer(self.device)
+
+        def run(block, prescaled=None):
+            nonlocal state
+            res, state = self.get_coordinates(
+                block,
+                fps,
+                num_homography=num_homography,
+                num_keypoint_detection=num_keypoint_detection,
+                verbose=verbose,
+                calibration=calibration,
+                timer=timer,
+                prescaled=prescaled,
+                _stream_in=state,
+                _stream_out=True,
+            )
+            return res
+
+        def blocks():
+            nonlocal buf
+            for seg in segments:
+                seg = np.asarray(seg)
+                if len(seg) == 0:
+                    continue
+                if buf is not None:
+                    seg = np.concatenate([buf, seg])
+                    buf = None
+                keep = len(seg) % chunk
+                if keep == len(seg):
+                    buf = seg
+                    continue
+                if keep:
+                    buf = seg[len(seg) - keep :].copy()  # detached from the block
+                    seg = seg[: len(seg) - keep]
+                yield seg
+            if buf is not None and len(buf):
+                yield buf
+
+        if prefetch == "auto":
+            from eagle_tpu_torch.utils import available_cpus
+
+            prefetch = available_cpus() > 1
+        if not prefetch:
+            for seg in blocks():
+                yield run(seg)
+            return
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        it = blocks()
+
+        def pull_next():
+            """The next block and its host prescale (the decode runs as the
+            worker advances ``segments`` inside ``blocks()``)."""
+            nxt = next(it, None)
+            return None if nxt is None else (nxt, self.prescale_clip(nxt))
+
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            cur = pull_next()
+            while cur is not None:
+                fut = ex.submit(pull_next)
+                seg, pre = cur
+                yield run(seg, prescaled=pre)
+                cur = fut.result()
 
     # ------------------------------------------------------------------
 

@@ -41,6 +41,11 @@ from eagle_tpu_torch.pipeline.coordinate_model import StageTimer, resolve_device
 
 CORNER_COLS = ["Bottom_Left", "Top_Left", "Top_Right", "Bottom_Right"]
 
+#: crops cut and voted at a time: a match has ~2.7M, and each crop of a
+#: batch holds host memory for its pixels and device memory for its
+#: float32 and HSV copies and the 12 colour-range masks
+VOTE_BATCH = 32768
+
 NAN = float("nan")
 
 
@@ -485,17 +490,26 @@ class Processor:
 
     def _start_team_votes(self):
         """Cut the crops on the host and launch the device votes without
-        waiting for them.  Returns (entries, votes tensor or None)."""
+        waiting for them, ``VOTE_BATCH`` crops at a time (each crop's KMeans
+        is its own problem, so the batches vote as one batch would).
+        Returns (entries, votes tensor or None)."""
         with self.timer("crops"):
             entries = self._crop_entries()
-            if not entries:
-                return (entries, None)
-            fidx = np.array([e[0] for e in entries], np.int32)
-            boxes = np.array([e[2] for e in entries], np.float32)
-            crops = gather_crops_host(self.frames, fidx, boxes, grid_hw=self.config.crop_hw)
-            crops = torch.from_numpy(crops).to(self.device)
+        if not entries:
+            return (entries, None)
+        fidx = np.array([e[0] for e in entries], np.int32)
+        boxes = np.array([e[2] for e in entries], np.float32)
+        votes = []
+        for i in range(0, len(entries), VOTE_BATCH):
+            with self.timer("crops"):
+                crops = gather_crops_host(
+                    self.frames, fidx[i : i + VOTE_BATCH], boxes[i : i + VOTE_BATCH], grid_hw=self.config.crop_hw
+                )
+                crops = torch.from_numpy(crops).to(self.device)
+            with self.timer("votes"):
+                votes.append(crop_color_votes(crops, iters=self.config.kmeans_iters))
         with self.timer("votes"):
-            return (entries, crop_color_votes(crops, iters=self.config.kmeans_iters))
+            return (entries, torch.cat(votes))
 
     def _finish_team_mapping(self, pending) -> dict:
         with self.timer("votes"):

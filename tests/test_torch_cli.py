@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,7 +22,7 @@ from eagle_tpu.utils.synthetic import make_scene
 from eagle_tpu_torch import main as tmain
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel as TModel
 
-from .oracles import oracle_detector_fn, oracle_keypoint_fn
+from .oracles import oracle_detections_at, oracle_detector_fn, oracle_keypoint_fn
 
 torch.set_num_threads(2)
 
@@ -95,7 +96,7 @@ def test_cli_main_decodes_the_clip_and_writes_its_outputs(tmp_path, monkeypatch,
     monkeypatch.setattr(
         tmain,
         "CoordinateModel",
-        lambda reid_checkpoint=None, device=None: TModel(
+        lambda reid_checkpoint=None, device=None, **_weights: TModel(
             keypoint_fn=oracle_keypoint_fn(sc), detector_fn=oracle_detector_fn(sc), reid_checkpoint=reid_checkpoint,
             device=device,
         ),
@@ -108,18 +109,98 @@ def test_cli_main_decodes_the_clip_and_writes_its_outputs(tmp_path, monkeypatch,
     assert '"temporal"' in capsys.readouterr().err
 
 
-@pytest.mark.parametrize(
-    "flags,item",
-    [
-        (["--keypoint_weights", "k.pth"], "item 3"),
-        (["--detector_weights", "d.pt"], "item 3"),
-        (["--reid_weights", "r.msgpack"], "item 3"),
-        (["--segment_frames", "16"], "item 4"),
-    ],
-)
-def test_cli_flags_that_are_not_ported_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tmain.main(["--video_path", "missing.mp4", *flags])
+def _read_outputs(out_dir) -> dict:
+    out = {}
+    for name in JSON_FILES:
+        with open(out_dir / name) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def test_cli_segment_frames_writes_what_the_one_shot_cli_writes(tmp_path, monkeypatch):
+    """``--segment_frames 16`` on an .mp4 of 40 frames: the video streams in
+    blocks of 16 + 16 + 8 through ``stream_coordinates``, the Processor and
+    the render read frames by index from a lazy ``VideoFrameSource``, and
+    the four JSON files equal the one-shot CLI's."""
+    from eagle_tpu_torch.io.video import read_video_array, write_video
+
+    sc = make_scene(num_frames=40, width=320, height=192, num_players=4, fps=8, seed=6)
+    write_video(list(sc.frames), str(tmp_path / "clip.mp4"), 8)
+    decoded, _ = read_video_array(str(tmp_path / "clip.mp4"), 8)
+    index = {f.tobytes(): i for i, f in enumerate(decoded)}
+
+    def detections(batch):
+        """The scene's detections of each decoded frame, found by its
+        content (a call cursor would be shifted by the blocks' batches)."""
+        return tuple(np.stack(a) for a in zip(*(oracle_detections_at(sc, index[f.tobytes()]) for f in batch)))
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(
+        tmain, "CoordinateModel",
+        lambda device=None, **_weights: TModel(keypoint_fn=oracle_keypoint_fn(sc), detector_fn=detections, device=device),
+    )
+    outs = {}
+    for flags in ([], ["--segment_frames", "16"]):
+        tmain.main(["--video_path", str(tmp_path / "clip.mp4"), "--fps", "8", "--device", "cpu", *flags])
+        out = tmp_path / "output" / "clip"
+        assert sorted(os.listdir(out)) == sorted(JSON_FILES + ["annotated.mp4"])
+        outs[bool(flags)] = _read_outputs(out)
+        for name in os.listdir(out):
+            os.remove(out / name)
+    assert outs[True] == outs[False]
+    assert len(outs[True]["raw_coordinates.json"]) == 40 and outs[True]["metadata.json"]["team_mapping"]
+
+
+def test_cli_weights_flags_build_the_models_from_checkpoints(tmp_path, monkeypatch):
+    """``--keypoint_weights k.pth --detector_weights d.pt --segment_frames
+    8``: the reference's HRNet checkpoint and an ultralytics YOLOv8 state
+    dict load into the built-in models bit for bit, and the streamed run
+    writes the four files.  The models run at a reduced input size."""
+    import dataclasses
+
+    import jax
+
+    from eagle_tpu.models import hrnet as jh
+    from eagle_tpu.models import yolov8 as jy
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.io.video import write_video
+    from eagle_tpu_torch.models.bridge import hrnet_from_jax, yolov8_from_jax
+
+    from .torch_parity import hrnet_reference_state_dict, spread_params, yolov8_ultralytics_state_dict
+
+    rng = np.random.default_rng(2)
+    hrnet = hrnet_from_jax(spread_params(jax.eval_shape(lambda: jh.init_params(jax.random.key(0))), rng))
+    yolo = yolov8_from_jax(spread_params(
+        jax.eval_shape(lambda: jy.init_params(jax.random.key(1), variant="n", num_classes=5)), rng, gain=1.0))
+    with torch.no_grad():  # random boxes without a ball would stop the Processor, in both packages alike
+        for level in yolo.head["levels"]:
+            level.cls_out.b.fill_(-30.0)
+    torch.save(hrnet_reference_state_dict(hrnet), tmp_path / "k.pth")
+    torch.save(yolov8_ultralytics_state_dict(yolo), tmp_path / "d.pt")
+    sc = make_scene(num_frames=12, width=320, height=192, num_players=4, fps=8, seed=2)
+    write_video(list(sc.frames), str(tmp_path / "clip.mp4"), 8)
+    cfg = DEFAULT_CONFIG.replace(
+        detector=dataclasses.replace(DEFAULT_CONFIG.detector, image_size=160, use_bf16=False),
+        keypoint=dataclasses.replace(DEFAULT_CONFIG.keypoint, input_hw=(96, 160), use_bf16=False),
+        chunk_frames=8,
+    )
+    built = []
+
+    def model(**kw):
+        built.append(TModel(config=cfg, **kw))
+        return built[-1]
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tmain, "CoordinateModel", model)
+    tmain.main(["--video_path", str(tmp_path / "clip.mp4"), "--fps", "8", "--device", "cpu", "--keypoint_weights",
+                str(tmp_path / "k.pth"), "--detector_weights", str(tmp_path / "d.pt"), "--segment_frames", "8"])
+    (m,) = built
+    for got, want in ((m.keypoint_model, hrnet), (m.detector_model, yolo)):
+        g, w = got.state_dict(), want.state_dict()
+        assert list(g) == list(w) and all(torch.equal(g[k], w[k]) for k in w)
+    out = tmp_path / "output" / "clip"
+    assert set(JSON_FILES) <= set(os.listdir(out))
+    assert sorted(_read_outputs(out)["raw_coordinates.json"], key=int) == [str(i) for i in range(12)]
 
 
 def test_cli_reid_weights_load_a_torchreid_state_dict(tmp_path, monkeypatch):
@@ -143,7 +224,7 @@ def test_cli_reid_weights_load_a_torchreid_state_dict(tmp_path, monkeypatch):
     )
     built = []
 
-    def model(reid_checkpoint=None, device=None):
+    def model(reid_checkpoint=None, device=None, **_weights):
         built.append(TModel(config=cfg, keypoint_fn=oracle_keypoint_fn(sc), detector_fn=oracle_detector_fn(sc),
                             reid_checkpoint=reid_checkpoint, device=device))
         return built[-1]

@@ -1,9 +1,10 @@
 """PyTorch port, the slice as a whole: ``CoordinateModel.get_coordinates``
 of both packages on make_scene clips, with (a) the oracle keypoint and
 detector callables and (b) the built-in HRNet-W48 / YOLOv8 with the same
-(bridged) weights at a reduced input size.  Also: the port imports
-nothing of JAX or the JAX package, nor pandas or OpenCV (the card's
-machine has neither), and it never falls back to the CPU quietly.
+(bridged) weights at a reduced input size.  Also: the port and
+``chip_smoke.py`` import nothing of JAX or the JAX package, nor flax,
+msgpack, onnx, pandas or OpenCV (the card's machine has none of them),
+and the port never falls back to the CPU quietly.
 
 Tolerances, per frame of the two dicts:
 - the frame keys, "Time", "Keypoints" (names and integer pixels), the
@@ -295,8 +296,29 @@ model = CoordinateModel(config=DEFAULT_CONFIG.replace(tracker=tracker), keypoint
                         detector_fn=detections, device="cpu")
 assert model.reid_model is not None
 assert sorted(model.get_coordinates(frames, 3)) == [0, 1, 2]
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "eagle_tpu", "pandas", "cv2"))
+# streaming (a prefetch thread) and serving (the Processor's thread)
+plain = CoordinateModel(keypoint_fn=keypoints, detector_fn=detections, device="cpu")
+blocks = list(plain.stream_coordinates([frames[:2], frames[2:]], 3, prefetch=True))
+assert sorted(k for b in blocks for k in b) == [0, 1, 2]
+from eagle_tpu_torch.pipeline.serve import serve_clips
+assert len(list(serve_clips(plain, [frames, frames[:2]], 3, overlap=True))) == 2
+# the checkpoint writers chip_smoke.py uses, and chip_smoke.py itself
+import chip_smoke
+from tests.torch_parity import hrnet_reference_state_dict, yolov8_ultralytics_state_dict
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack", "onnx", "eagle_tpu", "pandas", "cv2"))
 assert not bad, bad
+# no import statement of them anywhere in the package or chip_smoke.py
+import ast, pathlib
+for path in [*pathlib.Path("eagle_tpu_torch").rglob("*.py"), pathlib.Path("chip_smoke.py")]:
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "onnx", "eagle_tpu")]
+        assert not bad, (str(path), bad)
 print("hermetic")
 """
 

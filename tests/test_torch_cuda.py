@@ -192,3 +192,65 @@ def test_kernel_matches_plain_on_grid_corners(dev, canvas):
     np.testing.assert_array_equal(ks, ps)
     assert ps.sum() >= 100
     np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
+
+
+def _panned_clip(n: int, hw=(120, 148), seed: int = 2):
+    """(frames (n, H, W, 3) uint8: smoothed noise panned 1 px a frame,
+    keypoint_fn, detector_fn) -- callables that know each frame by its
+    content: six keypoints that pan with the texture and three drifting
+    player boxes."""
+    from scipy.ndimage import gaussian_filter
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    tex = gaussian_filter(rng.normal(size=(h, w + n, 3)), (1.5, 1.5, 0))
+    world = np.clip(128 + 60 * tex / tex.std(), 0, 255).astype(np.uint8)
+    frames = np.ascontiguousarray(np.stack([world[:, t : t + w] for t in range(n)]))
+    index = {f.tobytes(): t for t, f in enumerate(frames)}
+    pts = rng.uniform([30, 20], [w + n - 30, h - 20], (6, 2)).astype(np.float32)
+
+    def keypoint_fn(batch):
+        ts = np.array([index[f.tobytes()] for f in batch])
+        kp = np.zeros((len(ts), 57, 3), np.float32)
+        kp[:, :6, :2] = np.trunc(pts[None] - np.stack([ts, np.zeros_like(ts)], -1)[:, None])
+        kp[..., 2] = 0.9
+        valid = np.zeros((len(ts), 57), bool)
+        valid[:, :6] = (kp[:, :6, 0] > 5) & (kp[:, :6, 0] < w - 5)
+        return kp, valid
+
+    def detector_fn(batch):
+        ts = np.array([index[f.tobytes()] for f in batch], np.float32)
+        b = len(ts)
+        boxes = np.zeros((b, 128, 4), np.float32)
+        for k, x in enumerate((20.0, 60.0, 100.0)):
+            boxes[:, k] = np.stack([x + 0.5 * ts, 40 + 0 * ts, x + 12 + 0.5 * ts, 70 + 0 * ts], -1)
+        valid = np.zeros((b, 128), bool)
+        valid[:, :3] = True
+        return boxes, np.where(valid, 0.9, 0.0).astype(np.float32), np.zeros((b, 128), np.int32), valid
+
+    return frames, keypoint_fn, detector_fn
+
+
+def test_stream_on_the_card_equals_one_shot_without_staging(dev):
+    """``stream_coordinates`` on the card, 148-px frames (444-byte rows, off
+    the 16-byte grid, uploaded row-padded), segments 10 + 23 + 7 in blocks
+    of 32 + 8: equal to the one-shot run on the card, the flow kernel
+    launched at every step, and no frame staged into a pitched copy -- the
+    frame handed across the block boundary keeps its buffer's pitch."""
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    frames, kp_fn, det_fn = _panned_clip(40)
+    cfg = DEFAULT_CONFIG.replace(chunk_frames=16)
+    one = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda").get_coordinates(
+        frames, 8, num_keypoint_detection=2)
+    model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
+    of.staged, launches = 0, of.launches
+    blocks = list(model.stream_coordinates([frames[:10], frames[10:33], frames[33:]], 8, num_keypoint_detection=2,
+                                           prefetch=False))
+    torch.cuda.synchronize()
+    assert [len(b) for b in blocks] == [32, 8]
+    assert {k: v for b in blocks for k, v in b.items()} == one
+    assert of.staged == 0
+    assert of.launches - launches >= len(frames) - 1
+    assert sum(len(fr["Keypoints"]) for fr in one.values()) > 4 * len(frames)

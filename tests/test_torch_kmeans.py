@@ -139,3 +139,54 @@ def test_votes_differ_only_on_swapped_corner_ties():
     differ = (got != want).any(1)
     np.testing.assert_array_equal(differ, tie & swapped)
     assert differ.any()
+
+
+def test_crop_votes_in_batches_of_64_equal_one_batch():
+    """Each crop's 2-means and colour counts are its own problem: the 300
+    noise and blocky crops voted 64 at a time give the one-batch votes bit
+    for bit."""
+    crops = torch.from_numpy(_random_crops(0))
+    whole = tk.crop_color_votes(crops)
+    parts = torch.cat([tk.crop_color_votes(crops[i : i + 64]) for i in range(0, len(crops), 64)])
+    assert torch.equal(parts, whole)
+
+
+def test_crops_read_frames_in_bounded_groups():
+    """The host crops read their frames in ascending order, at most
+    ``CROP_FRAME_GROUP`` alive at once (a lazy frame source over a whole
+    match decodes forward and holds one group); the crops are bit-equal to
+    those cut from the stacked frames."""
+    import weakref
+
+    rng = np.random.default_rng(5)
+    stack = rng.integers(0, 256, (150, 40, 48, 3), dtype=np.uint8)
+
+    class CountingSource:
+        def __init__(self):
+            self.alive = self.peak = 0
+            self.order = []
+
+        def __len__(self):
+            return len(stack)
+
+        def __getitem__(self, i):
+            frame = stack[int(i)].copy()
+            self.order.append(int(i))
+            self.alive += 1
+            self.peak = max(self.peak, self.alive)
+            weakref.finalize(frame, self._dropped)
+            return frame
+
+        def _dropped(self):
+            self.alive -= 1
+
+    fidx = rng.permutation(np.repeat(np.arange(150), 2))[:260]
+    x1 = rng.integers(0, 40, len(fidx))
+    y1 = rng.integers(0, 30, len(fidx))
+    boxes = np.stack([x1, y1, x1 + rng.integers(1, 9, len(fidx)), y1 + rng.integers(1, 11, len(fidx))], -1)
+    src = CountingSource()
+    got = native.crops_linear_u8c3(src, fidx, boxes, (32, 16))
+    np.testing.assert_array_equal(got, native.crops_linear_u8c3(stack, fidx, boxes, (32, 16)))
+    assert src.peak <= native.CROP_FRAME_GROUP < len(np.unique(fidx))
+    read = src.order[1:]  # after the size probe of frame 0
+    assert read == sorted(read) and set(read) == set(fidx.tolist())

@@ -212,3 +212,40 @@ def test_processor_needs_the_card_or_an_explicit_cpu():
         TProcessor({}, [], 24)
     with pytest.raises(NotImplementedError, match="team_assign"):
         TProcessor({}, [], 24, config=TConfig(team_assign="host"), device="cpu")
+
+
+def test_votes_in_batches_equal_one_batch(monkeypatch):
+    """The Processor cuts and votes its crops ``VOTE_BATCH`` at a time; each
+    crop's KMeans is its own problem, so votes, mapping, table and records
+    are those of one batch.  The made clip's ~500 crops in batches of 64."""
+    from eagle_tpu_torch.pipeline import processor as tproc
+
+    coords, frames, fps = made_clip()
+    one = TProcessor(coords, frames, fps, device="cpu")
+    table, mapping = one.process_data()
+    assert len(one.crop_entries) > 4 * 64
+    monkeypatch.setattr(tproc, "VOTE_BATCH", 64)
+    batched = TProcessor(coords, frames, fps, device="cpu")
+    btable, bmapping = batched.process_data()
+    assert batched.crop_entries == one.crop_entries
+    np.testing.assert_array_equal(batched.crop_votes, one.crop_votes)
+    assert bmapping == mapping
+    assert_tables_equal(btable, _as_frame(table))
+    assert_records_equal(batched.format_data(btable), pd.DataFrame(one.format_data(table)))
+
+
+def test_clip_without_a_ball_stops_both_processors_alike():
+    """Shared with the JAX package (ROADMAP.md Queue 3): frames with a
+    person and no ball candidate anywhere leave the "Ball" column empty,
+    the coverage floor drops it, and the ball interpolation then raises
+    KeyError('Ball') in both Processors."""
+    frames = np.zeros((4, 64, 96, 3), np.uint8)
+    player = {"BBox": [10, 10, 20, 40], "Confidence": 0.9, "Transformed_Coordinates": [5, 5]}
+    coords = {
+        i: {"Coordinates": {"Player": {1: player}}, "Time": "00:00", "Keypoints": {}, "Boundaries": [None] * 4}
+        for i in range(4)
+    }
+    with pytest.raises(KeyError, match="Ball"):
+        JProcessor(coords, list(frames), 4).process_data()
+    with pytest.raises(KeyError, match="Ball"):
+        TProcessor(coords, list(frames), 4, device="cpu").process_data()

@@ -77,16 +77,23 @@ def _no_models():
 
 def test_reid_configuration_follows_the_jax_rules(tmp_path):
     """use_appearance=None means on exactly when ReID weights are given; the
-    embedder and the feature width are checked; .msgpack raises, naming the
-    checkpoint loaders' ROADMAP item; OSNet without weights warns."""
+    embedder and the feature width are checked; a .msgpack checkpoint (the
+    JAX package's save_params) loads the same weights as the pytree; OSNet
+    without weights warns."""
+    from eagle_tpu.models.checkpoint import save_params
+
     assert not TModel(**_no_models()).config.tracker.use_appearance
     m = TModel(reid_params=osnet_params(0), **_no_models())
     assert m.config.tracker.use_appearance and m.reid_model.fc.w.shape == (128, 512)
     on = _cfg(TCFG, use_appearance=True)
     with pytest.warns(UserWarning, match="RANDOM"):
         assert TModel(config=on, **_no_models()).reid_model is not None
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TModel(reid_checkpoint=str(tmp_path / "osnet.msgpack"), **_no_models())
+    path = save_params(osnet_params(0), str(tmp_path / "osnet.msgpack"))
+    loaded = TModel(reid_checkpoint=path, **_no_models())
+    assert loaded.config.tracker.use_appearance
+    want = m.reid_model.state_dict()
+    got = loaded.reid_model.state_dict()
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="embed_dim"):
         TModel(config=_cfg(TCFG, use_appearance=True, embedder="histogram"), **_no_models())
     with pytest.raises(ValueError, match="embedder"):
