@@ -6,7 +6,8 @@ layout mirrors the reference so that each counterpart is easy to find:
 
 - :mod:`eagle_tpu_torch.config`, :mod:`eagle_tpu_torch.pitch` -- static
   configuration and pitch geometry (copies);
-- :mod:`eagle_tpu_torch.native` -- the host C++ 4:2:0 prescale;
+- :mod:`eagle_tpu_torch.native` -- the host C++ prescales (4:2:0 and BGR
+  letterboxes, BGR -> I420) and crop resize;
 - :mod:`eagle_tpu_torch.ops` -- tensor ops, and the one hand-written CUDA
   kernel (``csrc/lk_flow.cu``, Lucas-Kanade optical flow) behind
   :func:`eagle_tpu_torch.ops.optical_flow.lk_flow`;
@@ -16,9 +17,10 @@ layout mirrors the reference so that each counterpart is easy to find:
   ``.onnx``, ``.msgpack``);
 - :mod:`eagle_tpu_torch.track` -- the BoT-SORT tracker, with appearance
   association;
-- :mod:`eagle_tpu_torch.pipeline` -- the temporal step,
-  ``CoordinateModel.get_coordinates`` and ``stream_coordinates``, the
-  ``Processor`` and ``serve_clips``;
+- :mod:`eagle_tpu_torch.pipeline` -- the temporal step (and its
+  clip-batched form), ``CoordinateModel.get_coordinates`` and
+  ``stream_coordinates``, ``MultiClipRunner``, the ``Processor`` and
+  ``serve_clips``;
 - :mod:`eagle_tpu_torch.io` -- video decode and encode (OpenCV), the
   JSON writers.
 

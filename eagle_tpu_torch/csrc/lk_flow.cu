@@ -14,12 +14,21 @@
 // (K,) bool.  Out: g (K, 2) float32 and status (K,) = ok & inside & valid,
 // where ok is det > 1e-6 of the structure tensor at every level.
 //
+// Clip-batched: one launch can take C frame pairs, one of each of C clips
+// (the JAX package's clip-batched step runs lk_flow_pallas2 under vmap, one
+// pallas_call with a leading clip axis).  Then the frames are (C, H, W, 3)
+// with one clip stride, pts (C, K, 2), valid (C, K), and the outputs
+// follow; the grid is (K, C) and blockIdx.y picks the clip, whose frames
+// the third coordinate of the rank-3 tensor maps selects.  Every block does
+// exactly what it does in a launch of one pair, so a batched launch gives
+// the bytes of C single launches.
+//
 // One block of 256 threads per point, both frames and all levels inside
 // it.  The block:
 //  1. Computes the ROI origin with roi_origins' integer arithmetic: floor,
 //     centre, clamp to the frame, align down to 2**levels.
-//  2. Loads the side x side BGR ROI of each frame by TMA, through a 2-D
-//     tensor map over the frame viewed as an (H, 3W) uint8 array.  A box
+//  2. Loads the side x side BGR ROI of each frame by TMA, through a tensor
+//     map over the frames viewed as a (C, H, 3W) uint8 array.  A box
 //     starts only on a 16-byte boundary of a row and spans at most 256
 //     bytes, and the ROI's first byte, 3 * x, is a multiple of 4 only; so
 //     each half of the ROI's rows (a band) is three boxes of side/2 rows x
@@ -170,12 +179,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
-// the box at (byte x, row y) of an (H, 3W) frame map; x a multiple of 16
-__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+// the box at (byte x, row y) of frame `clip` of a (C, H, 3W) frames map; x a
+// multiple of 16
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, int x, int y, int clip,
+                                             uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
           "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(clip), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -497,7 +508,8 @@ lk_flow_fused(const __grid_constant__ CUtensorMap prev_map, const __grid_constan
   // keeps every access derived from it in the shared window (LDS/STS)
   unsigned char* smem = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   const int tid = threadIdx.x;
-  const int k = blockIdx.x;
+  const int clip = blockIdx.y;
+  const int k = clip * gridDim.x + blockIdx.x;  // the point's row of (C, K) pts and outputs
   const int side = L.side;
   const int levels = L.levels;
   const float ptx = pts[2 * k];
@@ -517,7 +529,7 @@ lk_flow_fused(const __grid_constant__ CUtensorMap prev_map, const __grid_constan
     mbar_expect_tx(&bar[slot], kBoxes * L.band_rows * L.box_bytes);
     for (int i = 0; i < kBoxes; ++i) {
       tma_load_box(smem + slot * L.slot_bytes + i * L.tile_bytes, map, x0 + i * L.box_bytes,
-                   oy + slot * L.band_rows, &bar[slot]);
+                   oy + slot * L.band_rows, clip, &bar[slot]);
     }
   };
   if (tid == 0) {
@@ -663,20 +675,25 @@ extern "C" int lk_flow_smem_bytes(int side, int levels, int window) {
   return make_layout(side, levels, window).total + kAlign;
 }
 
-// C interface for ctypes.  prev/curr: h rows of w BGR uint8 pixels each,
+// C interface for ctypes.  prev/curr: `clips` frames each, frame c at
+// c * clip_stride bytes from the pointer, of h rows of w BGR uint8 pixels,
 // 16-byte aligned, rows `pitch` bytes apart (a multiple of 16, at least 3w;
-// the bytes past 3w are never read); pts (k, 2) float32; valid (k,) bool;
-// out_g (k, 2) float32; out_status (k,) bool.  side: the ROI side
-// (roi_side(h, w), a multiple of 4, at most 192 so that a box's width and
-// a band's rows stay within TMA's 256 a dimension).  Launches one block
-// per point on `stream` and returns cudaGetLastError() (0 on success) or
-// one of the codes above.
-extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, int h, int w, int pitch, const float* pts,
-                                    const uint8_t* valid, float* out_g, uint8_t* out_status, int k, int side,
-                                    int levels, int window, int iterations, float epsilon, void* stream) {
-  if (k <= 0) return 0;
+// the bytes past 3w are never read); clip_stride a multiple of 16, at least
+// h * pitch (any value when clips == 1); pts (clips, k, 2) float32; valid
+// (clips, k) bool; out_g (clips, k, 2) float32; out_status (clips, k) bool.
+// side: the ROI side (roi_side(h, w), a multiple of 4, at most 192 so that
+// a box's width and a band's rows stay within TMA's 256 a dimension).
+// Launches one block per point and clip on `stream` and returns
+// cudaGetLastError() (0 on success) or one of the codes above.
+extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, int h, int w, int pitch,
+                                    long long clip_stride, int clips, const float* pts, const uint8_t* valid,
+                                    float* out_g, uint8_t* out_status, int k, int side, int levels, int window,
+                                    int iterations, float epsilon, void* stream) {
+  if (k <= 0 || clips <= 0) return 0;
+  if (clips == 1) clip_stride = (long long)h * pitch;
   if (levels < 0 || levels >= kMaxLevels || side < 4 || side > 192 || side % 4 != 0 || window < 1 ||
-      window * window > kMaxTaps * kThreads || pitch < 3 * w || pitch % 16 != 0) {
+      window * window > kMaxTaps * kThreads || pitch < 3 * w || pitch % 16 != 0 || clips > 65535 ||
+      clip_stride % 16 != 0 || clip_stride < (long long)h * pitch) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(side, levels, window);
@@ -697,17 +714,17 @@ extern "C" int lk_flow_fused_launch(const uint8_t* prev, const uint8_t* curr, in
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap maps[2];
   const uint8_t* frames[2] = {prev, curr};
-  const cuuint64_t dims[2] = {(cuuint64_t)3 * w, (cuuint64_t)h};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {(cuuint32_t)L.box_bytes, (cuuint32_t)L.band_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)3 * w, (cuuint64_t)h, (cuuint64_t)clips};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch, (cuuint64_t)clip_stride};
+  const cuuint32_t box[3] = {(cuuint32_t)L.box_bytes, (cuuint32_t)L.band_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
   for (int f = 0; f < 2; ++f) {
-    CUresult r = encode(&maps[f], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<uint8_t*>(frames[f]), dims, strides,
+    CUresult r = encode(&maps[f], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<uint8_t*>(frames[f]), dims, strides,
                         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return kErrEncode - (int)r;
   }
-  lk_flow_fused<<<k, kThreads, smem, (cudaStream_t)stream>>>(maps[0], maps[1], pts, valid, out_g, out_status,
-                                                                L, h, w, iterations, epsilon);
+  lk_flow_fused<<<dim3(k, clips), kThreads, smem, (cudaStream_t)stream>>>(maps[0], maps[1], pts, valid, out_g,
+                                                                             out_status, L, h, w, iterations, epsilon);
   return (int)cudaGetLastError();
 }

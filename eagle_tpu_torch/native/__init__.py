@@ -1,11 +1,13 @@
 """Host-side C++ (``prescale.cpp``), built with ``g++`` at first use and
-bound with ``ctypes``: the BGR -> packed I420 letterbox and the team-vote
-crop resize.
+bound with ``ctypes``: the BGR -> packed I420 conversion, the letterboxes
+onto the working canvas (4:2:0 planes or BGR, any geometry), and the
+team-vote crop resize.
 
 ``prescale.cpp`` started as a copy of the JAX package's ``eagle_tpu/
 native/prescale.cpp`` (byte-identical clones of cv2's BGR->I420
-conversion and INTER_LINEAR plane resize) and adds the 3-channel crop
-resize that stands in for ``cv2.resize`` in the team votes.  The shared
+conversion and INTER_LINEAR plane resize) and adds a general
+``cv2.resize`` INTER_LINEAR clone (any scale, 1 or 3 channels) behind the
+team-vote crops and the letterboxes outside the fused kernel's envelope.  The shared
 library is built into ``build/eagle_tpu_torch/`` at the repository root
 (git-ignored), never next to the sources.  Builds hold a file lock, so
 concurrent processes build a library once and never load a half-written
@@ -82,6 +84,12 @@ def _load_prescale():
         lib = ctypes.CDLL(_PRESCALE_LIB)
         lib.letterbox_i420.restype = None
         lib.letterbox_i420.argtypes = [_u8, _u8] + [ctypes.c_int32] * 12
+        lib.letterbox_i420_general.restype = None
+        lib.letterbox_i420_general.argtypes = [_u8, _u8] + [ctypes.c_int32] * 12
+        lib.letterbox_bgr.restype = None
+        lib.letterbox_bgr.argtypes = [_u8, _u8] + [ctypes.c_int32] * 11
+        lib.bgr_to_i420.restype = None
+        lib.bgr_to_i420.argtypes = [_u8, _u8] + [ctypes.c_int32] * 4
         lib.crops_linear_u8c3.restype = None
         lib.crops_linear_u8c3.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int32, _i32, _i32,
@@ -101,18 +109,22 @@ def letterbox_i420(
     y_pad: int,
     uv_pad: int,
     threads: int | None = None,
+    general: bool = False,
 ) -> np.ndarray:
-    """Fused convert + letterbox: BGR uint8 (N, H, W, 3) -> packed I420
-    working canvas (N, canvas_h*3/2, canvas_w), byte-identical to cv2's
-    convert-then-resize composition under the gate the caller checks
-    (downscale, img_w % 32 == 0 -- see prescale.cpp for why the tail
-    rounding needs 16-wide rows)."""
+    """Convert + letterbox: BGR uint8 (N, H, W, 3) -> packed I420 working
+    canvas (N, canvas_h*3/2, canvas_w), byte-identical to cv2's
+    convert-then-resize composition.  The fused kernel needs the gate the
+    caller checks (downscale, img_w % 32 == 0 -- see prescale.cpp for why
+    the tail rounding needs 16-wide rows); ``general=True`` runs the
+    unfused one, which takes any geometry with the 4:2:0 placement
+    parity."""
     lib = _load_prescale()
     frames_bgr = np.ascontiguousarray(frames_bgr, dtype=np.uint8)
     n, h, w, c = frames_bgr.shape
     assert c == 3
     out = np.empty((n, geom.canvas_h * 3 // 2, geom.canvas_w), np.uint8)
-    lib.letterbox_i420(
+    fn = lib.letterbox_i420_general if general else lib.letterbox_i420
+    fn(
         frames_bgr,
         out,
         n,
@@ -128,6 +140,33 @@ def letterbox_i420(
         uv_pad,
         threads or _default_threads(),
     )
+    return out
+
+
+def letterbox_bgr(frames_bgr: np.ndarray, geom, pad: int = 114, threads: int | None = None) -> np.ndarray:
+    """BGR uint8 (N, H, W, 3) -> the BGR working canvas (N, canvas_h,
+    canvas_w, 3): each frame ``cv2.resize``d (INTER_LINEAR) to img_h x
+    img_w at (pad_y, pad_x) on ``pad`` gray, byte-identical to OpenCV, for
+    any geometry."""
+    lib = _load_prescale()
+    frames_bgr = np.ascontiguousarray(frames_bgr, dtype=np.uint8)
+    n, h, w, _ = frames_bgr.shape
+    out = np.empty((n, geom.canvas_h, geom.canvas_w, 3), np.uint8)
+    lib.letterbox_bgr(
+        frames_bgr, out, n, h, w, geom.img_h, geom.img_w, geom.pad_y, geom.pad_x, geom.canvas_h, geom.canvas_w,
+        pad, threads or _default_threads(),
+    )
+    return out
+
+
+def bgr_to_i420(frames_bgr: np.ndarray, threads: int | None = None) -> np.ndarray:
+    """BGR uint8 (N, H, W, 3) -> packed I420 planes (N, H*3/2, W),
+    byte-identical to ``cv2.cvtColor(COLOR_BGR2YUV_I420)`` (even H, W)."""
+    lib = _load_prescale()
+    frames_bgr = np.ascontiguousarray(frames_bgr, dtype=np.uint8)
+    n, h, w, _ = frames_bgr.shape
+    out = np.empty((n, h * 3 // 2, w), np.uint8)
+    lib.bgr_to_i420(frames_bgr, out, n, h, w, threads or _default_threads())
     return out
 
 

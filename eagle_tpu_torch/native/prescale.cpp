@@ -1,8 +1,12 @@
 // Host-side frame prescale: BGR -> packed I420 conversion and the
-// letterboxed working-canvas prescale, bit-exact clones of the cv2 ops
+// letterboxed working-canvas prescales, bit-exact clones of the cv2 ops
 // they replace (cv2.cvtColor COLOR_BGR2YUV_I420 and cv2.resize
-// INTER_LINEAR on uint8 planes); and the team-vote crops, cv2.resize
-// INTER_LINEAR of integer boxes of BGR frames (crops_linear_u8c3).
+// INTER_LINEAR): the fused 4:2:0 letterbox (letterbox_i420, downscales
+// with img_w % 32 == 0), the unfused one for any geometry
+// (letterbox_i420_general) and the BGR one (letterbox_bgr), both over one
+// general cv2.resize clone (resize_linear_u8); and the team-vote crops,
+// cv2.resize INTER_LINEAR of integer boxes of BGR frames
+// (crops_linear_u8c3).
 //
 // Native counterpart of the reference's OpenCV dependency role
 // (SURVEY.md section 2.2: preprocessing / color-space ops, implemented in
@@ -375,9 +379,10 @@ void letterbox_frame(const uint8_t* bgr, int h, int w, const Geom& g,
             cw / 2, rowbuf, [](int) {});
 }
 
-// cv2.resize(crop, (gw, gh), INTER_LINEAR) of one 3-channel uint8 crop
-// (sh rows of sw pixels, source row stride src_stride bytes) into a
-// contiguous (gh, gw, 3) destination, byte-identical to OpenCV:
+// cv2.resize(src, (dw, dh), INTER_LINEAR) of one uint8 image of cn
+// interleaved channels (sh rows of sw pixels, source row stride src_stride
+// bytes) into a destination of row stride dst_stride bytes, byte-identical
+// to OpenCV at any scale, up or down:
 //  - the same size is a copy;
 //  - an exact 2x downscale in both axes is cv2's INTER_AREA fast path,
 //    (a + b + c + d + 2) >> 2 per channel (cv2 switches INTER_LINEAR to it);
@@ -386,33 +391,35 @@ void letterbox_frame(const uint8_t* bgr, int h, int w, const Geom& g,
 //    coefficients from the UNclamped fraction with only the row indices
 //    clamped (cv2 clips the source rows, not the weights), and the
 //    vectorized vertical descale.  Every step is exact integer arithmetic,
-//    so any row width gives cv2's bytes.
-void crop_linear_u8c3(const uint8_t* src, int sh, int sw, int64_t src_stride,
-                      int gh, int gw, uint8_t* dst,
+//    so any row width gives cv2's bytes.  The two horizontally resampled
+//    rows in use are cached, as cv2 caches them.
+void resize_linear_u8(const uint8_t* src, int sh, int sw, int64_t src_stride,
+                      int cn, int dh, int dw, uint8_t* dst, int64_t dst_stride,
                       std::vector<int32_t>& rowbuf) {
-  if (sh == gh && sw == gw) {
-    for (int y = 0; y < gh; ++y)
-      std::memcpy(dst + (int64_t)y * gw * 3, src + y * src_stride,
-                  (size_t)gw * 3);
+  const int row = dw * cn;
+  if (sh == dh && sw == dw) {
+    for (int y = 0; y < dh; ++y)
+      std::memcpy(dst + (int64_t)y * dst_stride, src + y * src_stride,
+                  (size_t)row);
     return;
   }
-  if (sh == 2 * gh && sw == 2 * gw) {
-    for (int y = 0; y < gh; ++y) {
+  if (sh == 2 * dh && sw == 2 * dw) {
+    for (int y = 0; y < dh; ++y) {
       const uint8_t* r0 = src + (int64_t)(2 * y) * src_stride;
       const uint8_t* r1 = r0 + src_stride;
-      uint8_t* d = dst + (int64_t)y * gw * 3;
-      for (int x = 0; x < gw * 3; ++x) {
-        const int j = (x / 3) * 6 + x % 3;
-        d[x] = (uint8_t)((r0[j] + r0[j + 3] + r1[j] + r1[j + 3] + 2) >> 2);
+      uint8_t* d = dst + (int64_t)y * dst_stride;
+      for (int x = 0; x < row; ++x) {
+        const int j = (x / cn) * 2 * cn + x % cn;
+        d[x] = (uint8_t)((r0[j] + r0[j + cn] + r1[j] + r1[j + cn] + 2) >> 2);
       }
     }
     return;
   }
   // cv2 derives the scale from the inverse ratio dst / src
-  const LinearCoeffs cx = linear_coeffs(gw, sw, 1.0 / ((double)gw / sw));
-  std::vector<int32_t> ys0(gh), ys1(gh), yb0(gh), yb1(gh);
-  const double scale_y = 1.0 / ((double)gh / sh);
-  for (int y = 0; y < gh; ++y) {
+  const LinearCoeffs cx = linear_coeffs(dw, sw, 1.0 / ((double)dw / sw));
+  std::vector<int32_t> ys0(dh), ys1(dh), yb0(dh), yb1(dh);
+  const double scale_y = 1.0 / ((double)dh / sh);
+  for (int y = 0; y < dh; ++y) {
     float fy = (float)((y + 0.5) * scale_y - 0.5);
     const int sy = (int)std::floor(fy);
     fy -= sy;
@@ -421,24 +428,37 @@ void crop_linear_u8c3(const uint8_t* src, int sh, int sw, int64_t src_stride,
     yb1[y] = (int32_t)std::nearbyintf(fy * 2048.f);
     yb0[y] = (int32_t)std::nearbyintf((1.f - fy) * 2048.f);
   }
-  const int row = gw * 3;
   rowbuf.resize(2 * (size_t)row);
   int32_t* hr[2] = {rowbuf.data(), rowbuf.data() + row};
-  auto hresize = [&](int sy, int32_t* d) {
+  int cached[2] = {-1, -1};
+  auto hresize = [&](int sy, int slot) {
     const uint8_t* s = src + sy * src_stride;
-    for (int x = 0; x < gw; ++x) {
-      const uint8_t* p0 = s + 3 * cx.s0[x];
-      const uint8_t* p1 = s + 3 * cx.s1[x];
-      for (int c = 0; c < 3; ++c) d[3 * x + c] = p0[c] * cx.a0[x] + p1[c] * cx.a1[x];
+    int32_t* d = hr[slot];
+    for (int x = 0; x < dw; ++x) {
+      const uint8_t* p0 = s + cn * cx.s0[x];
+      const uint8_t* p1 = s + cn * cx.s1[x];
+      for (int c = 0; c < cn; ++c) d[cn * x + c] = p0[c] * cx.a0[x] + p1[c] * cx.a1[x];
     }
+    cached[slot] = sy;
   };
-  for (int y = 0; y < gh; ++y) {
-    hresize(ys0[y], hr[0]);
-    hresize(ys1[y], hr[1]);
+  // the slot holding source row sy, resampled into the slot not holding
+  // `keep` when it is not cached
+  auto slot_of = [&](int sy, int keep) {
+    for (int k = 0; k < 2; ++k)
+      if (cached[k] == sy) return k;
+    const int k = cached[0] == keep ? 1 : 0;
+    hresize(sy, k);
+    return k;
+  };
+  for (int y = 0; y < dh; ++y) {
+    const int i0 = slot_of(ys0[y], ys1[y]);
+    const int i1 = slot_of(ys1[y], ys0[y]);
+    const int32_t* r0 = hr[i0];
+    const int32_t* r1 = hr[i1];
     const int32_t b0 = yb0[y], b1 = yb1[y];
-    uint8_t* d = dst + (int64_t)y * row;
+    uint8_t* d = dst + (int64_t)y * dst_stride;
     for (int x = 0; x < row; ++x) {
-      int32_t v = ((b0 * (hr[0][x] >> 4)) >> 16) + ((b1 * (hr[1][x] >> 4)) >> 16);
+      int32_t v = ((b0 * (r0[x] >> 4)) >> 16) + ((b1 * (r1[x] >> 4)) >> 16);
       v = (v + 2) >> 2;
       d[x] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
     }
@@ -469,8 +489,8 @@ void crops_linear_u8c3(const uint8_t* const* frames, int32_t w,
     for (int32_t i = 0; i < n; ++i) {
       const int32_t* b = boxes + 4 * (int64_t)i;
       const uint8_t* src = frames[fidx[i]] + b[1] * stride + (int64_t)b[0] * 3;
-      crop_linear_u8c3(src, b[3] - b[1], b[2] - b[0], stride, gh, gw,
-                       out + (int64_t)i * gh * gw * 3, rowbuf);
+      resize_linear_u8(src, b[3] - b[1], b[2] - b[0], stride, 3, gh, gw,
+                       out + (int64_t)i * gh * gw * 3, (int64_t)gw * 3, rowbuf);
     }
   }
 }
@@ -524,6 +544,79 @@ void letterbox_i420(const uint8_t* bgr, uint8_t* out, int32_t n, int32_t h,
       letterbox_frame(bgr + (int64_t)i * h * w * 3, h, w, g, (uint8_t)y_pad,
                       (uint8_t)uv_pad, cxy, cyy, cxc, cyc, rb, scratch.data(),
                       rowbuf, out + (int64_t)i * out_stride);
+    }
+  }
+}
+
+// BGR uint8 (n, h, w, 3) -> letterboxed packed I420 working canvas
+// (n, canvas_h*3/2, canvas_w) for ANY working geometry with the 4:2:0
+// placement parity (even offsets and extents, canvas_h % 4 == 0), up- or
+// downscaling: each frame converted to I420 planes (cv2.cvtColor
+// COLOR_BGR2YUV_I420), then each plane resized onto its padded canvas plane
+// (cv2.resize INTER_LINEAR) -- the JAX package's cv2 composition
+// (eagle_tpu/ops/preprocess.py::_host_letterbox_i420_cv2), byte for byte.
+void letterbox_i420_general(const uint8_t* bgr, uint8_t* out, int32_t n,
+                            int32_t h, int32_t w, int32_t img_h, int32_t img_w,
+                            int32_t pad_y, int32_t pad_x, int32_t canvas_h,
+                            int32_t canvas_w, int32_t y_pad, int32_t uv_pad,
+                            int32_t threads) {
+  const int64_t out_stride = (int64_t)(canvas_h * 3 / 2) * canvas_w;
+  const int ch = canvas_h, cw = canvas_w;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(threads > 0 ? threads : 1) if (threads > 1)
+#endif
+  {
+    std::vector<uint8_t> planes((size_t)(h * 3 / 2) * w);
+    std::vector<int32_t> rowbuf;
+    RowBufs rb;
+#ifdef _OPENMP
+#pragma omp for schedule(static)
+#endif
+    for (int32_t i = 0; i < n; ++i) {
+      convert_frame(bgr + (int64_t)i * h * w * 3, h, w, rb, planes.data());
+      const uint8_t* ys = planes.data();
+      const uint8_t* us = ys + (int64_t)h * w;
+      const uint8_t* vs = us + (int64_t)(h / 2) * (w / 2);
+      uint8_t* yd = out + (int64_t)i * out_stride;
+      uint8_t* ud = yd + (int64_t)ch * cw;
+      uint8_t* vd = ud + (int64_t)(ch / 2) * (cw / 2);
+      std::memset(yd, y_pad, (size_t)ch * cw);
+      std::memset(ud, uv_pad, (size_t)(ch / 2) * (cw / 2));
+      std::memset(vd, uv_pad, (size_t)(ch / 2) * (cw / 2));
+      resize_linear_u8(ys, h, w, w, 1, img_h, img_w,
+                       yd + (int64_t)pad_y * cw + pad_x, cw, rowbuf);
+      const int64_t coff = (int64_t)(pad_y / 2) * (cw / 2) + pad_x / 2;
+      resize_linear_u8(us, h / 2, w / 2, w / 2, 1, img_h / 2, img_w / 2,
+                       ud + coff, cw / 2, rowbuf);
+      resize_linear_u8(vs, h / 2, w / 2, w / 2, 1, img_h / 2, img_w / 2,
+                       vd + coff, cw / 2, rowbuf);
+    }
+  }
+}
+
+// BGR uint8 (n, h, w, 3) -> letterboxed BGR working canvas (n, canvas_h,
+// canvas_w, 3): the frame resized to img_h x img_w (cv2.resize
+// INTER_LINEAR) at (pad_y, pad_x) on a canvas of `pad` gray, as the JAX
+// package's host_letterbox makes it, for any geometry.
+void letterbox_bgr(const uint8_t* bgr, uint8_t* out, int32_t n, int32_t h,
+                   int32_t w, int32_t img_h, int32_t img_w, int32_t pad_y,
+                   int32_t pad_x, int32_t canvas_h, int32_t canvas_w,
+                   int32_t pad, int32_t threads) {
+  const int64_t out_stride = (int64_t)canvas_h * canvas_w * 3;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(threads > 0 ? threads : 1) if (threads > 1)
+#endif
+  {
+    std::vector<int32_t> rowbuf;
+#ifdef _OPENMP
+#pragma omp for schedule(static)
+#endif
+    for (int32_t i = 0; i < n; ++i) {
+      uint8_t* o = out + (int64_t)i * out_stride;
+      std::memset(o, pad, (size_t)out_stride);
+      resize_linear_u8(bgr + (int64_t)i * h * w * 3, h, w, (int64_t)w * 3, 3,
+                       img_h, img_w, o + ((int64_t)pad_y * canvas_w + pad_x) * 3,
+                       (int64_t)canvas_w * 3, rowbuf);
     }
   }
 }

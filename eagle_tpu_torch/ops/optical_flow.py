@@ -11,6 +11,9 @@ step is the hand-written CUDA kernel ``csrc/lk_flow.cu``:
   points and status out; the ROIs, their gray pyramids and the Newton
   steps stay in the block's shared memory.  It raises if the kernel does
   not build or launch.  On CPU tensors it is :func:`lk_flow_plain`.
+- :func:`lk_flow_clips` is the flow step of C clips at once (a frame pair
+  and K points of each): one launch of the same kernel over a (K, C)
+  grid on CUDA tensors, :func:`lk_flow_plain` clip by clip on CPU ones.
 - :func:`lk_flow_plain` is the kernel's plain version on any device, a
   transcription of the JAX ``lk_flow``: each point's 192-px gray ROI pair
   and its pyramid (:func:`roi_pyramids`), then the per-point engine
@@ -259,6 +262,9 @@ _lib = None
 launches = 0
 #: the same launches by their point count K (57 keypoints, 240 corners)
 launches_by_k: dict[int, int] = {}
+#: the same launches by (clips C, points K): C = 1 for :func:`lk_flow`, the
+#: batch for :func:`lk_flow_clips`
+launches_by_ck: dict[tuple[int, int], int] = {}
 #: frames copied into a pitched buffer before a launch (:func:`_pitched`)
 staged = 0
 
@@ -292,8 +298,8 @@ def _load():
             lib.lk_flow_smem_bytes.argtypes = [ctypes.c_int] * 3
             lib.lk_flow_fused_launch.restype = ctypes.c_int
             lib.lk_flow_fused_launch.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                + [ctypes.c_float, ctypes.c_void_p]
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int]
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
             )
             _lib = lib
     return _lib
@@ -328,21 +334,29 @@ def _pitch(w: int) -> int:
     return -(-3 * w // 16) * 16
 
 
-def upload_frames(frames: np.ndarray, device) -> torch.Tensor:
-    """(N, H, W, 3) uint8 host frames on ``device``.  On a CUDA device,
-    frames whose rows (3W bytes) are not a multiple of 16 bytes are laid
-    into a buffer with rows padded to :func:`_pitch`, and the (N, H, W, 3)
-    view of it is returned, so that the kernel reads every frame in place
+def alloc_frames(n: int, h: int, w: int, device) -> torch.Tensor:
+    """An uninitialised (N, H, W, 3) uint8 frame buffer on ``device``.  On
+    a CUDA device its rows are padded to :func:`_pitch` bytes when 3W is
+    not a multiple of 16 (the (N, H, W, 3) view of an (N, H, pitch) buffer
+    is returned), so that the kernel reads every frame in place
     (:func:`_pitched`) instead of staging a copy each flow step."""
-    x = torch.from_numpy(np.ascontiguousarray(frames))
     dev = torch.device(device)
-    n, h, w, _ = x.shape
     if dev.type != "cuda" or (3 * w) % 16 == 0:
-        return x.to(dev)
+        return torch.empty((n, h, w, 3), dtype=torch.uint8, device=dev)
     buf = torch.empty((n, h, _pitch(w)), dtype=torch.uint8, device=dev)
-    rows = buf[:, :, : 3 * w]
-    rows.copy_(x.view(n, h, 3 * w))
-    return rows.view(n, h, w, 3)
+    return buf[:, :, : 3 * w].view(n, h, w, 3)
+
+
+def upload_frames(frames: np.ndarray, device) -> torch.Tensor:
+    """(N, H, W, 3) uint8 host frames on ``device``, in the layout of
+    :func:`alloc_frames`."""
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    n, h, w, _ = x.shape
+    if torch.device(device).type != "cuda" or (3 * w) % 16 == 0:
+        return x.to(device)
+    out = alloc_frames(n, h, w, device)
+    out.copy_(x)
+    return out
 
 
 def carry_frame(frame: torch.Tensor) -> torch.Tensor:
@@ -377,6 +391,44 @@ def _pitched(frame: torch.Tensor, pitch: int | None = None) -> tuple[torch.Tenso
     return rows, pitch
 
 
+def _check_flow_args(levels: int, window: int) -> None:
+    if not 0 <= levels <= 3:
+        raise ValueError(f"lk_flow kernel supports 0-3 pyramid levels above the base, got {levels}")
+    if window % 2 != 1 or window > 31:
+        raise ValueError(f"lk_flow kernel needs an odd window of at most 31, got {window}")
+
+
+def _launch(prev, curr, h, w, pitch, clip_stride, clips, pts, valid, out_g, status, levels, window, iterations,
+            epsilon) -> None:
+    """One launch of the kernel over ``clips`` frame pairs and their K
+    points (the wrappers checked every argument); raises on a refused
+    launch, else counts it."""
+    global launches
+    k = pts.shape[-2]
+    side = roi_side(h, w)
+    lib = _load()
+    dev = pts.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lk_flow_fused_launch(
+            prev.data_ptr(), curr.data_ptr(), h, w, pitch, clip_stride, clips, pts.data_ptr(), valid.data_ptr(),
+            out_g.data_ptr(), status.data_ptr(), k, side, levels, window, iterations, float(epsilon), stream,
+        )
+    if err == _ERR_SMEM:
+        raise ValueError(
+            f"lk_flow kernel: side {side}, window {window} needs "
+            f"{lib.lk_flow_smem_bytes(side, levels, window)} B of shared memory a block, more than the card allows"
+        )
+    if err != 0:
+        what = "cuTensorMapEncodeTiled is not available from libcuda" if err == _ERR_NO_ENCODE else (
+            f"tensor map refused, CUresult {_ERR_ENCODE - err}" if err <= _ERR_ENCODE else f"cudaError {err}"
+        )
+        raise RuntimeError(f"lk_flow kernel launch failed: {what}")
+    launches += 1
+    launches_by_k[k] = launches_by_k.get(k, 0) + 1
+    launches_by_ck[(clips, k)] = launches_by_ck.get((clips, k), 0) + 1
+
+
 def lk_flow_cuda(
     prev_bgr: torch.Tensor,
     curr_bgr: torch.Tensor,
@@ -398,7 +450,6 @@ def lk_flow_cuda(
     copied into a buffer with rows padded to the next multiple of 16
     (:func:`_pitched`); frames of :func:`upload_frames` need no copy.  The
     kernel's tensor map takes the row stride."""
-    global launches
     dev = pts.device
     if dev.type != "cuda":
         raise ValueError(f"lk_flow kernel needs CUDA tensors, got {dev}")
@@ -410,36 +461,65 @@ def lk_flow_cuda(
     _check_frame(curr_bgr, "curr_bgr", (h, w, 3), dev)
     _check(pts, "pts", torch.float32, (k, 2), dev)
     _check(valid, "valid", torch.bool, (k,), dev)
-    if not 0 <= levels <= 3:
-        raise ValueError(f"lk_flow kernel supports 0-3 pyramid levels above the base, got {levels}")
-    if window % 2 != 1 or window > 31:
-        raise ValueError(f"lk_flow kernel needs an odd window of at most 31, got {window}")
-    side = roi_side(h, w)
-    lib = _load()
+    _check_flow_args(levels, window)
     prev_rows, pitch = _pitched(prev_bgr)
     curr_rows, _ = _pitched(curr_bgr, pitch)
     out_g = torch.empty((k, 2), dtype=torch.float32, device=dev)
     status = torch.empty((k,), dtype=torch.bool, device=dev)
-    if k == 0:
-        return out_g, status
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lk_flow_fused_launch(
-            prev_rows.data_ptr(), curr_rows.data_ptr(), h, w, pitch, pts.data_ptr(), valid.data_ptr(),
-            out_g.data_ptr(), status.data_ptr(), k, side, levels, window, iterations, float(epsilon), stream,
-        )
-    if err == _ERR_SMEM:
-        raise ValueError(
-            f"lk_flow kernel: side {side}, window {window} needs "
-            f"{lib.lk_flow_smem_bytes(side, levels, window)} B of shared memory a block, more than the card allows"
-        )
-    if err != 0:
-        what = "cuTensorMapEncodeTiled is not available from the driver" if err == _ERR_NO_ENCODE else (
-            f"tensor map refused, CUresult {_ERR_ENCODE - err}" if err <= _ERR_ENCODE else f"cudaError {err}"
-        )
-        raise RuntimeError(f"lk_flow kernel launch failed: {what}")
-    launches += 1
-    launches_by_k[k] = launches_by_k.get(k, 0) + 1
+    if k:
+        _launch(prev_rows, curr_rows, h, w, pitch, h * pitch, 1, pts, valid, out_g, status, levels, window,
+                iterations, epsilon)
+    return out_g, status
+
+
+def lk_flow_clips_cuda(
+    prev_bgr: torch.Tensor,
+    curr_bgr: torch.Tensor,
+    pts: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 15,
+    levels: int = 2,
+    iterations: int = 10,
+    epsilon: float = 0.03,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flow step of C clips as one launch of the CUDA kernel over a
+    (K, C) grid: (new_pts (C, K, 2) float32, status (C, K) bool), clip c's
+    rows exactly what :func:`lk_flow_cuda` gives for its pair.  Takes CUDA
+    tensors: frames (C, H, W, 3) uint8 whose rows are dense and 16-byte
+    aligned, with strides (clip stride, pitch, 3, 1), the pitch and the
+    clip stride multiples of 16 and the same in both (frame t of every clip
+    of one :func:`alloc_frames` buffer of C clips of L frames, viewed as
+    (C, L, H, W, 3), is such a tensor); contiguous ``pts`` (C, K, 2)
+    float32 and ``valid`` (C, K) bool.  Raises ``ValueError`` on anything
+    else, before launching: nothing is staged."""
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"lk_flow kernel needs CUDA tensors, got {dev}")
+    if prev_bgr.dim() != 4 or prev_bgr.shape[-1] != 3:
+        raise ValueError(f"lk_flow_clips: frames must be (C, H, W, 3), got {tuple(prev_bgr.shape)}")
+    c, h, w, _ = prev_bgr.shape
+    k = pts.shape[1] if pts.dim() == 3 else 0
+    _check(pts, "pts", torch.float32, (c, k, 2), dev)
+    _check(valid, "valid", torch.bool, (c, k), dev)
+    _check_flow_args(levels, window)
+    cs, pitch = prev_bgr.stride(0), prev_bgr.stride(1)
+    for name, t in (("prev_bgr", prev_bgr), ("curr_bgr", curr_bgr)):
+        if (
+            t.device != dev or t.dtype != torch.uint8 or tuple(t.shape) != (c, h, w, 3)
+            or t.stride() != (cs, pitch, 3, 1) or pitch % 16 or pitch < 3 * w or t.data_ptr() % 16
+            or (c > 1 and (cs % 16 or cs < h * pitch))
+        ):
+            raise ValueError(
+                f"lk_flow_clips: {name} must be a uint8 (C, H, W, 3) = {(c, h, w, 3)} tensor on {dev} with "
+                f"strides (clip stride, pitch, 3, 1), pitch and clip stride multiples of 16 (clip stride >= H "
+                f"* pitch), a 16-byte aligned base, and the strides of prev_bgr {(cs, pitch, 3, 1)}; got "
+                f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device} at {t.data_ptr() % 16} mod 16"
+            )
+    out_g = torch.empty((c, k, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((c, k), dtype=torch.bool, device=dev)
+    if c and k:
+        _launch(prev_bgr, curr_bgr, h, w, pitch, cs, c, pts, valid, out_g, status, levels, window, iterations,
+                epsilon)
     return out_g, status
 
 
@@ -485,3 +565,25 @@ def lk_flow_plain(
     g, ok = engine_plain(pyr, origin, pts, side, levels, window, iterations, epsilon)
     inside = (g[:, 0] >= 0) & (g[:, 0] <= w - 1) & (g[:, 1] >= 0) & (g[:, 1] <= h - 1)
     return g, ok & inside & valid
+
+
+def lk_flow_clips(
+    prev_bgr: torch.Tensor,
+    curr_bgr: torch.Tensor,
+    pts: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = 15,
+    levels: int = 2,
+    iterations: int = 10,
+    epsilon: float = 0.03,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Track ``pts`` (C, K, 2) from ``prev_bgr`` to ``curr_bgr`` ((C, H, W,
+    3) uint8), clip by clip.  Returns (new_pts (C, K, 2), status (C, K)):
+    one launch of the CUDA kernel for all C clips for CUDA tensors
+    (:func:`lk_flow_clips_cuda`), :func:`lk_flow_plain` on each clip for
+    CPU tensors."""
+    if pts.device.type == "cuda":
+        return lk_flow_clips_cuda(prev_bgr, curr_bgr, pts, valid, window, levels, iterations, epsilon)
+    outs = [lk_flow_plain(p, c, q, v, window, levels, iterations, epsilon)
+            for p, c, q, v in zip(prev_bgr, curr_bgr, pts, valid)]
+    return torch.stack([g for g, _ in outs]), torch.stack([s for _, s in outs])

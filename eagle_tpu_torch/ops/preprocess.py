@@ -1,6 +1,7 @@
-"""Image preprocessing: working-canvas geometry, the host 4:2:0 prescale,
-the BT.601 inverse on the device (and OpenCV's exact fixed-point one), and
-the keypoint model's resize + normalisation.
+"""Image preprocessing: working-canvas geometry, the host prescales (4:2:0
+planes or BGR onto the working canvas, raw 4:2:0 planes), the device
+letterbox of raw planes, the BT.601 inverse on the device (and OpenCV's
+exact fixed-point one), and the keypoint model's resize + normalisation.
 
 PyTorch counterpart of ``eagle_tpu/ops/preprocess.py``.  Frames are NHWC
 uint8 BGR at every public function, as in the JAX package; resizes are two
@@ -163,22 +164,47 @@ def native_prescale_ok(geom, frame_hw: tuple[int, int]) -> bool:
 
 def host_letterbox_i420(frames_bgr: np.ndarray, geom) -> np.ndarray:
     """Prescale straight in 4:2:0 on the host: BGR uint8 (N, H, W, 3) ->
-    packed I420 working canvas (N, canvas_h*3//2, canvas_w), through the
-    native kernel (native/prescale.cpp).
-
-    Only the native kernel's envelope is supported (see
-    :func:`native_prescale_ok`; every downscaling working geometry, e.g.
-    1280x720 -> 544x960); other geometries raise."""
+    packed I420 working canvas (N, canvas_h*3//2, canvas_w), byte for byte
+    as the JAX package makes it (cv2's BGR->I420 conversion, then cv2
+    INTER_LINEAR on each plane), in native C++ (native/prescale.cpp): the
+    fused kernel inside its envelope (:func:`native_prescale_ok`: every
+    downscaling working geometry, e.g. 1280x720 -> 544x960), the unfused
+    one outside it (upscaling, e.g. 640x360 and 854x480 -> 540x960 in
+    544x960, or ``img_w % 32 != 0``).  Needs :func:`i420_geometry_ok`."""
     n, h, w, _ = frames_bgr.shape
-    if not native_prescale_ok(geom, (h, w)):
-        raise NotImplementedError(
-            f"the 4:2:0 prescale supports downscaling geometries with img_w % 32 == 0 "
-            f"only; got {h}x{w} -> image {geom.img_h}x{geom.img_w} in canvas "
-            f"{geom.canvas_h}x{geom.canvas_w}"
+    if not i420_geometry_ok(geom, (h, w)):
+        raise ValueError(
+            f"the 4:2:0 letterbox needs even placement (i420_geometry_ok); got {h}x{w} -> image "
+            f"{geom.img_h}x{geom.img_w} at ({geom.pad_y}, {geom.pad_x}) in canvas {geom.canvas_h}x{geom.canvas_w}"
         )
     from eagle_tpu_torch import native
 
-    return native.letterbox_i420(np.ascontiguousarray(frames_bgr), geom, I420_PAD_Y, I420_PAD_UV)
+    return native.letterbox_i420(
+        np.ascontiguousarray(frames_bgr), geom, I420_PAD_Y, I420_PAD_UV, general=not native_prescale_ok(geom, (h, w))
+    )
+
+
+def host_letterbox(frames_bgr: np.ndarray, geom) -> np.ndarray:
+    """The BGR working canvas on the host: (N, H, W, 3) uint8 -> (N,
+    canvas_h, canvas_w, 3), each frame resized (cv2 INTER_LINEAR, byte for
+    byte) onto 114-gray, as the JAX package's ``host_letterbox``; any
+    geometry (native C++)."""
+    from eagle_tpu_torch import native
+
+    return native.letterbox_bgr(frames_bgr, geom, 114)
+
+
+def host_to_i420(frames_bgr: np.ndarray) -> np.ndarray:
+    """BGR uint8 (N, H, W, 3) -> packed I420 planes (N, H*3//2, W),
+    byte for byte as ``cv2.cvtColor(COLOR_BGR2YUV_I420)`` (native C++).
+    The packing stores each chroma plane as H/4 whole rows of W bytes, so
+    H % 4 == 0 and W even are required."""
+    n, h, w, _ = frames_bgr.shape
+    if h % 4 or w % 2:
+        raise ValueError(f"the packed I420 layout needs H % 4 == 0 and an even W, got {h}x{w}")
+    from eagle_tpu_torch import native
+
+    return native.bgr_to_i420(frames_bgr)
 
 
 def _yuv_planes_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -252,3 +278,31 @@ def i420_to_bgr_exact(planes: torch.Tensor) -> torch.Tensor:
     yy = torch.clamp(y - 16, min=0) * _CV_CY + (1 << 19)
     bgr = torch.stack([yy + _CV_CUB * u, yy + _CV_CVG * v + _CV_CUG * u, yy + _CV_CVR * v], dim=-1)
     return torch.clamp(bgr >> 20, 0, 255).to(torch.uint8)
+
+
+def device_letterbox_i420(planes: torch.Tensor, geom) -> torch.Tensor:
+    """RAW-resolution packed I420 planes (N, H*3//2, W) uint8 -> the BGR
+    working canvas (N, canvas_h, canvas_w, 3) uint8, on the planes' device
+    (``PipelineConfig.prescale="device"``; counterpart of the JAX
+    package's ``device_letterbox_i420``): each plane resized with the
+    half-pixel INTER_LINEAR convention as two float32 interpolation
+    products, rounded onto its canvas plane of the letterbox gray's I420
+    value, then the BT.601 inverse.  Within a few LSB of the host path
+    (cv2's fixed-point resize; the bounds are measured in
+    ``tests/test_torch_prescale_paths.py``).  Needs
+    :func:`i420_geometry_ok` on the raw frames."""
+    y, u, v = _split_i420(planes, torch.float32)
+    n = y.shape[0]
+    ih, iw, py, px = geom.img_h, geom.img_w, geom.pad_y, geom.pad_x
+    ch, cw = geom.canvas_h, geom.canvas_w
+
+    def onto(p, canvas_hw, y0, x0, hw, val):
+        c = torch.full((n, *canvas_hw), float(val), dtype=torch.float32, device=p.device)
+        r = resize_bilinear(p[..., None], hw)[..., 0]
+        c[:, y0 : y0 + hw[0], x0 : x0 + hw[1]] = torch.clamp(torch.round(r), 0.0, 255.0)
+        return c
+
+    yc = onto(y, (ch, cw), py, px, (ih, iw), I420_PAD_Y)
+    uc = onto(u, (ch // 2, cw // 2), py // 2, px // 2, (ih // 2, iw // 2), I420_PAD_UV)
+    vc = onto(v, (ch // 2, cw // 2), py // 2, px // 2, (ih // 2, iw // 2), I420_PAD_UV)
+    return _yuv_planes_to_bgr(yc, uc, vc)

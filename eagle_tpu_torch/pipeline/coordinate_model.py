@@ -11,8 +11,10 @@ block:
 - host prescale: every frame is letterboxed once on the host to the
   detector's working canvas (544x960 for 720p) as packed 4:2:0 planes
   (native C++; :meth:`CoordinateModel.prescale_clip` runs it alone, with no
-  device work, so a worker thread can), uploaded, and rebuilt as BGR on the
-  card (BT.601 inverse);
+  device work, so a worker thread can), uploaded and rebuilt as BGR on the
+  card (BT.601 inverse) ``PIECE`` frames at a time into one uint8 frame
+  buffer; ``PipelineConfig.prescale`` / ``upload_format`` choose the JAX
+  package's other modes (:meth:`CoordinateModel._prescale_plan`);
 - the detector (YOLOv8 + class-aware NMS) on every frame, in batches of
   ``PIECE``, and with ``TrackerConfig.use_appearance`` the appearance
   embeddings of the first ``reid_slots`` detections of each frame (OSNet
@@ -35,6 +37,9 @@ exactly when ReID weights are given.  Checkpoint formats: ``.msgpack``
 (the JAX package's ``save_params``, any model), ``.onnx`` (the detector),
 else a torch state dict -- the reference's ``KeypointModel`` for HRNet,
 ultralytics' for YOLOv8, torchreid's for OSNet.
+
+``get_coordinates(_clip_lens=)`` runs several clips as one flattened
+stream (:class:`eagle_tpu_torch.pipeline.multiclip.MultiClipRunner`).
 
 The entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card it raises.
@@ -64,10 +69,14 @@ from eagle_tpu_torch.ops.embed import HIST_BINS, histogram_embeddings
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
 from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.ops.nms import batched_nms
-from eagle_tpu_torch.ops.optical_flow import carry_frame, upload_frames
+from eagle_tpu_torch.ops.optical_flow import alloc_frames, carry_frame, upload_frames
 from eagle_tpu_torch.ops.preprocess import (
     compute_work_geometry,
+    device_letterbox_i420,
+    host_letterbox,
     host_letterbox_i420,
+    host_to_i420,
+    i420_geometry_ok,
     i420_to_bgr,
     i420_to_bgr_exact,
     letterbox,
@@ -77,6 +86,7 @@ from eagle_tpu_torch.ops.preprocess import (
     resolve_upload_format,
 )
 from eagle_tpu_torch.pipeline import temporal
+from eagle_tpu_torch.pipeline.transfer import drain_together
 
 PITCH_WIDTH = 105
 PITCH_HEIGHT = 68
@@ -91,14 +101,23 @@ ONDEMAND_ROUNDS = 3
 
 class PrescaledClip(NamedTuple):
     """A clip's host prescale (:meth:`CoordinateModel.prescale_clip`), for
-    ``get_coordinates(prescaled=...)``: ``mode`` "canvas_planes" (``host``
-    holds the packed 4:2:0 working canvases, (N, canvas_h*3/2, canvas_w)
-    uint8) or "raw_bgr" (the frames themselves, contiguous), and ``n``
-    frames."""
+    ``get_coordinates(prescaled=...)``: ``n`` frames and ``mode``, the JAX
+    package's upload modes, which say what ``host`` holds:
+
+    - "canvas_planes": the packed 4:2:0 working canvases, (N,
+      canvas_h*3/2, canvas_w) uint8, decoded on the device;
+    - "raw_planes" (``prescale="device"``): the frames' own packed 4:2:0
+      planes, (N, H*3/2, W), letterboxed on the device;
+    - "canvas_bgr": the BGR working canvases (N, canvas_h, canvas_w, 3);
+    - "raw_bgr": the frames themselves, contiguous.
+
+    ``yuv``: the BGR modes cross to the device as 4:2:0 planes (the
+    configuration's transport, :meth:`CoordinateModel._prescale_plan`)."""
 
     mode: str
     n: int
     host: np.ndarray
+    yuv: bool = False
 
 
 def load_keypoint_params(path: str):
@@ -242,7 +261,12 @@ class CoordinateModel:
         reid_checkpoint: str | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        verbose_init: bool = False,
     ):
+        """``verbose_init`` (the JAX package's keyword, default True there):
+        when true, prints ``Using <device> for inference`` once the device
+        is resolved, as the JAX package prints its backend; the default
+        prints nothing."""
         cfg = config or DEFAULT_CONFIG
         if cfg.tracker.use_appearance is None:
             # "follow the weights": ReID is on exactly when weights are given
@@ -252,6 +276,8 @@ class CoordinateModel:
         reid = _reid_model(cfg, reid_params, reid_checkpoint, seed)
         self.config = cfg
         self.device = resolve_device(device)
+        if verbose_init:
+            print(f"Using {self.device} for inference")
         #: the appearance slot's OSNet (None with the histogram or no ReID)
         self.reid_model: OSNet | None = None if reid is None else reid.to(self.device).eval()
         self.keypoint_conf = keypoint_conf
@@ -307,30 +333,45 @@ class CoordinateModel:
         """Host prescale + upload: (N, H, W, 3) uint8 BGR -> the device
         frames every stage consumes ((N, canvas_h, canvas_w, 3) uint8 BGR
         on the working path, the raw frames otherwise, their rows padded to
-        16 bytes on the card: :func:`upload_frames`)."""
-        return self._upload(frames, geom)[0]
+        16 bytes on the card: :func:`alloc_frames`)."""
+        return self._upload(self._prescale(frames, geom), geom)
 
-    def _prescale_mode(self, geom: WorkGeometry) -> str:
-        """What the host prescale makes for ``geom``: "canvas_planes" on the
-        working path, "raw_bgr" otherwise; raises on settings not ported."""
-        fmt = resolve_upload_format(self.config.upload_format, geom.enabled)
-        if self.config.prescale != "host":
-            raise NotImplementedError("only the host prescale is ported (PipelineConfig.prescale)")
-        if geom.enabled:
-            if fmt != "yuv420":
-                raise NotImplementedError(
-                    "the working-resolution path ships 4:2:0 planes; upload_format='bgr' "
-                    "with a working geometry (a cv2 letterbox) is not ported"
-                )
-            return "canvas_planes"
-        if fmt == "yuv420":
-            raise NotImplementedError("4:2:0 transport of raw-resolution frames is not ported")
-        return "raw_bgr"
+    def _prescale_plan(self, geom: WorkGeometry, img_hw: tuple[int, int]) -> tuple[str, bool]:
+        """(mode, yuv): the upload mode (see :class:`PrescaledClip`) and
+        whether frames cross to the device as 4:2:0 planes, by the JAX
+        package's rule (``_DevicePieces._host_plan``): 4:2:0 when the
+        resolved ``upload_format`` is "yuv420" and what is uploaded (the
+        canvas, or the raw frames) has H % 4 == 0 and an even W; the 4:2:0
+        letterbox when that holds and :func:`i420_geometry_ok`, on the
+        device with ``prescale="device"``, else on the host; the BGR
+        letterbox with any other working geometry; the raw frames
+        without one."""
+        cfg = self.config
+        if cfg.prescale not in ("host", "device"):
+            raise ValueError(f"PipelineConfig.prescale must be 'host' or 'device', got {cfg.prescale!r}")
+        fmt = resolve_upload_format(cfg.upload_format, geom.enabled)
+        h, w = (geom.canvas_h, geom.canvas_w) if geom.enabled else img_hw
+        yuv = fmt == "yuv420" and h % 4 == 0 and w % 2 == 0
+        if yuv and geom.enabled and i420_geometry_ok(geom, img_hw):
+            return ("raw_planes" if cfg.prescale == "device" else "canvas_planes"), yuv
+        return ("canvas_bgr" if geom.enabled else "raw_bgr"), yuv
 
-    def _prescale(self, frames: np.ndarray, geom: WorkGeometry) -> PrescaledClip:
-        mode = self._prescale_mode(geom)
-        host = host_letterbox_i420(frames, geom) if mode == "canvas_planes" else np.ascontiguousarray(frames)
-        return PrescaledClip(mode, len(frames), host)
+    def _prescale(self, frames, geom: WorkGeometry) -> PrescaledClip:
+        """The host prescale of ``frames``, an (N, H, W, 3) array or a list
+        of such clips prescaled one after another into one flat clip."""
+        if isinstance(frames, (list, tuple)):
+            parts = [self._prescale(np.asarray(c), geom) for c in frames]
+            host = parts[0].host if len(parts) == 1 else np.concatenate([p.host for p in parts])
+            return parts[0]._replace(n=len(host), host=host)
+        frames = np.asarray(frames)
+        mode, yuv = self._prescale_plan(geom, (int(frames.shape[1]), int(frames.shape[2])))
+        host = {
+            "canvas_planes": lambda: host_letterbox_i420(frames, geom),
+            "raw_planes": lambda: host_to_i420(frames),
+            "canvas_bgr": lambda: host_letterbox(frames, geom),
+            "raw_bgr": lambda: np.ascontiguousarray(frames),
+        }[mode]()
+        return PrescaledClip(mode, len(frames), host, yuv)
 
     def prescale_clip(self, frames) -> PrescaledClip:
         """The host prescale of a clip alone, as :meth:`get_coordinates`
@@ -341,24 +382,43 @@ class CoordinateModel:
         frames = np.asarray(frames)
         return self._prescale(frames, self._geometry((int(frames.shape[1]), int(frames.shape[2]))))
 
-    def _upload(
-        self, frames: np.ndarray, geom: WorkGeometry, prescaled: PrescaledClip | None = None
-    ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """:meth:`upload` (of ``prescaled`` when given, which must be the
-        prescale of ``frames``), plus the uploaded packed 4:2:0 planes on
-        the working path (None otherwise)."""
-        mode = self._prescale_mode(geom)
-        if prescaled is None:
-            prescaled = self._prescale(frames, geom)
-        elif (prescaled.mode, prescaled.n) != (mode, len(frames)):
-            raise ValueError(
-                f"prescaled clip of {prescaled.n} frames as {prescaled.mode!r}, but this clip needs "
-                f"{len(frames)} frames as {mode!r}"
-            )
-        if mode == "canvas_planes":
-            planes = torch.from_numpy(prescaled.host).to(self.device)
-            return i420_to_bgr(planes), planes
-        return upload_frames(prescaled.host, self.device), None
+    def _upload(self, pre: PrescaledClip, geom: WorkGeometry) -> torch.Tensor:
+        """The device frames of a prescaled clip: uploaded ``PIECE`` frames
+        at a time and decoded (4:2:0 planes), letterboxed ("raw_planes") or
+        copied into one uint8 frame buffer in the layout of
+        :func:`alloc_frames` (rows padded to 16 bytes on the card), so that
+        the decode's temporaries are one piece's and the flow kernel reads
+        every frame in place."""
+        dev = self.device
+        h, w = (geom.canvas_h, geom.canvas_w) if pre.mode != "raw_bgr" else pre.host.shape[1:3]
+        out = alloc_frames(pre.n, h, w, dev)
+        for i in range(0, pre.n, PIECE):
+            part = pre.host[i : i + PIECE]
+            if pre.mode == "canvas_planes":
+                x = i420_to_bgr(torch.from_numpy(part).to(dev))
+            elif pre.mode == "raw_planes":
+                x = device_letterbox_i420(torch.from_numpy(part).to(dev), geom)
+            elif pre.yuv:
+                x = i420_to_bgr(torch.from_numpy(host_to_i420(part)).to(dev))
+            else:
+                x = torch.from_numpy(part).to(dev)
+            out[i : i + len(part)].copy_(x)
+        return out
+
+    def _seed_frames(self, pre: PrescaledClip, geom: WorkGeometry, dev_frames, lo: int, hi: int) -> torch.Tensor:
+        """Frames ``lo:hi`` for the backward seed, on the device, as the JAX
+        package seeds over its host copies (``_DevicePieces.host_range``):
+        OpenCV's decode of the 4:2:0 canvases, OpenCV's decode of the raw
+        planes letterboxed on the host ("raw_planes"), the host's BGR
+        frames otherwise (the device frames themselves when they crossed
+        as BGR)."""
+        dev = self.device
+        part = pre.host[lo:hi]
+        if pre.mode == "canvas_planes":
+            return i420_to_bgr_exact(torch.from_numpy(part).to(dev))
+        if pre.mode == "raw_planes":
+            return upload_frames(host_letterbox(i420_to_bgr_exact(torch.from_numpy(part)).numpy(), geom), dev)
+        return upload_frames(part, dev) if pre.yuv else dev_frames[lo:hi]
 
     @torch.no_grad()
     def run_keypoints(self, x: torch.Tensor, geom: WorkGeometry, img_hw) -> torch.Tensor:
@@ -436,6 +496,44 @@ class CoordinateModel:
             emb = histogram_embeddings(x, fi, boxes[:, :k].reshape(-1, 4)).reshape(nb, k, -1)
         return torch.cat([emb, emb.new_zeros(nb, d - k, emb.shape[-1])], dim=1)
 
+    def _seed_clips(self, spans, sampled, mem_kp, mem_valid, cfg, frames_of) -> None:
+        """First-frame seeding (the reference's backward flow), in place on
+        the memos: for each clip span (first index, real length) whose
+        first frame has under 4 keypoints, flow backward from the span's
+        first sampled frame that has 4 or more, over ``frames_of(lo, hi)``
+        (device frames lo..hi-1); memoized entries win per label."""
+        dev = self.device
+        for base, clip_n in spans:
+            if mem_valid[base].sum() >= 4:
+                continue
+            found = next((j - base for j in sampled if base <= j < base + clip_n and mem_valid[j].sum() >= 4), None)
+            if not found:
+                continue
+            seed_xy, seed_ok = temporal.backward_seed(
+                frames_of(base, base + found + 1),
+                torch.from_numpy(mem_kp[base + found, :, :2]).to(dev),
+                torch.from_numpy(mem_valid[base + found]).to(dev),
+                cfg,
+            )
+            seed_xy, seed_ok = seed_xy.cpu().numpy(), seed_ok.cpu().numpy()
+            for j in range(found):
+                take = seed_ok[j] & ~mem_valid[base + j]
+                mem_kp[base + j, take, :2] = seed_xy[j, take]
+                mem_valid[base + j] |= seed_ok[j]
+
+    def _ransac_draws(self, cfg: PipelineConfig):
+        """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw (the JAX package's
+        stream, reproduced on the host) as a device tensor, made once a
+        ``t``."""
+        cache: dict[int, torch.Tensor] = {}
+
+        def gumbel_fn(t: int) -> torch.Tensor:
+            if t not in cache:
+                cache[t] = torch.from_numpy(ransac_gumbel(self.seed, t, cfg.homography.ransac_iters, 57)).to(self.device)
+            return cache[t]
+
+        return gumbel_fn
+
     def _custom_keypoints(self, frames: np.ndarray) -> np.ndarray:
         kp, valid = self._keypoint_fn(frames)
         return np.concatenate([np.asarray(kp, np.float32), np.asarray(valid, np.float32)[..., None]], -1)
@@ -479,16 +577,31 @@ class CoordinateModel:
         num_keypoint_detection: int = 1,
         verbose: bool = False,
         calibration: bool = False,
+        profile: StageTimer | None = None,
         timer: StageTimer | None = None,
         prescaled: PrescaledClip | None = None,
+        _clip_lens: list[int] | None = None,
         _stream_in: dict | None = None,
         _stream_out: bool = False,
-    ) -> dict:
+    ):
         """{frame_idx: {"Coordinates", "Time", "Keypoints", "Boundaries"}}
-        for BGR uint8 frames (N, H, W, 3).  ``timer`` (optional) collects
-        per-stage wall-clock seconds (prescale, detector, reid when
-        appearance is on, keypoints, temporal, assembly).  ``prescaled``:
-        this clip's :meth:`prescale_clip`, made beforehand.
+        for BGR uint8 frames (N, H, W, 3).  ``calibration`` replaces the
+        configuration's ``calibration`` (the JAX package's rule: the
+        argument wins, and it defaults to off).  ``profile`` (the JAX
+        package's keyword) or ``timer``, not both: a :class:`StageTimer`
+        that collects per-stage wall-clock seconds (prescale, detector,
+        reid when appearance is on, keypoints, temporal, assembly).
+        ``prescaled``: this clip's :meth:`prescale_clip`, made beforehand.
+
+        ``_clip_lens`` is for :class:`~eagle_tpu_torch.pipeline.multiclip.MultiClipRunner`
+        with the built-in models: ``frames`` is a list of C clips padded to
+        one length L (their last frame repeated), ``_clip_lens`` their real
+        lengths, run as one flattened stream: ``t`` counts within the clip
+        (the cadences, RANSAC's draws), the carry resets at every clip's
+        first frame, pad frames are never sampled, flagged for an
+        on-demand round or seeded from, and each clip seeds within its real
+        length.  Returns a list of per-clip dicts, each equal to the clip's
+        own run.
 
         ``_stream_in`` / ``_stream_out`` are for :meth:`stream_coordinates`:
         the clip continues a stream whose state ``_stream_in`` holds --
@@ -498,17 +611,35 @@ class CoordinateModel:
         ``(result, state)``.  Every index the block sees is global: the
         result's keys and "Time", the keypoint and homography cadences and
         each frame's RANSAC draws."""
-        timer = timer or StageTimer(self.device)
-        frames = np.asarray(frames)
-        n = len(frames)
-        if n == 0:
-            return ({}, _stream_in) if _stream_out else {}
+        if profile is not None and timer is not None:
+            raise ValueError("pass profile= or timer=, not both (they are the same StageTimer)")
+        timer = profile or timer or StageTimer(self.device)
         t0 = 0 if _stream_in is None else int(_stream_in["t"])
+        if _clip_lens is not None:
+            if self._custom_kp or self._custom_det:
+                raise ValueError("_clip_lens runs the built-in models' path; custom models take MultiClipRunner's clip-batched step")
+            if _stream_in is not None or _stream_out or prescaled is not None:
+                raise ValueError("streaming and prescaled= are single-clip")
+            frames = [np.asarray(c) for c in frames]
+            n_clips, L = len(frames), len(frames[0])
+            if any(len(c) != L for c in frames) or len(_clip_lens) != n_clips:
+                raise ValueError("_clip_lens needs one padded length for every clip and one real length a clip")
+            n = n_clips * L
+            tt = np.tile(np.arange(L, dtype=np.int64), n_clips)
+            first = frames[0]
+        else:
+            frames = np.asarray(frames)
+            n = len(frames)
+            tt = np.arange(t0, t0 + n, dtype=np.int64)
+            first = frames
+        if n == 0:
+            empty = {} if _clip_lens is None else []
+            return (empty, _stream_in) if _stream_out else empty
         cfg = self.config
-        if calibration:
-            cfg = cfg.replace(calibration=True)
+        if calibration != cfg.calibration:
+            cfg = cfg.replace(calibration=calibration)
         temporal.check_config(cfg)
-        img_hw = (int(frames.shape[1]), int(frames.shape[2]))
+        img_hw = (int(first.shape[1]), int(first.shape[2]))
         if _stream_in is not None and tuple(_stream_in["img_hw"]) != img_hw:
             raise ValueError(
                 f"a stream's blocks must share one resolution: this block is {img_hw[0]}x{img_hw[1]}, "
@@ -522,9 +653,15 @@ class CoordinateModel:
 
         appearance = bool(cfg.tracker.use_appearance)
         with timer("prescale"):
-            dev_frames = planes = None
-            if not (self._custom_kp and self._custom_det) or appearance:
-                dev_frames, planes = self._upload(frames, geom, prescaled)
+            want = self._prescale_plan(geom, img_hw)
+            if prescaled is None:
+                prescaled = self._prescale(frames, geom)
+            elif (prescaled.mode, prescaled.yuv, prescaled.n) != (*want, n):
+                raise ValueError(
+                    f"prescaled clip of {prescaled.n} frames as {prescaled.mode!r} (4:2:0 transport "
+                    f"{prescaled.yuv}), but this clip needs {n} frames as {want[0]!r} (4:2:0 transport {want[1]})"
+                )
+            dev_frames = self._upload(prescaled, geom)
 
         # detections, and their embeddings, a piece at a time (a piece of
         # 1024 ReID crops of 256x128 is ~400 MB in float32)
@@ -541,57 +678,40 @@ class CoordinateModel:
             det_rows.append(rows)
         det = torch.cat(det_rows)
 
-        sampled = [j for j in range(n) if (t0 + j) % kp_interval == 0]
+        sampled = [j for j in range(n) if tt[j] % kp_interval == 0]
+        # every attempted frame is memoized, found or not, so a barren
+        # frame is never re-detected; pad frames (short clips repeated to
+        # L) are never sampled and never flagged for an on-demand round
+        mem_attempted = np.zeros((n,), bool)
+        if _clip_lens is not None:
+            sampled = [j for j in sampled if j % L < _clip_lens[j // L]]
+            for ci, ln in enumerate(_clip_lens):
+                mem_attempted[ci * L + ln : (ci + 1) * L] = True
         mem_kp = np.zeros((n, 57, 3), np.float32)
         mem_valid = np.zeros((n, 57), bool)
-        # every attempted frame is memoized, found or not, so a barren
-        # frame is never re-detected
-        mem_attempted = np.zeros((n,), bool)
         with timer("keypoints"):
             packed = self._keypoints_at(sampled, frames, dev_frames, geom, img_hw)
             mem_kp[sampled] = packed[..., :3]
             mem_valid[sampled] = packed[..., 3] > 0.5
             mem_attempted[sampled] = True
 
-        # canvas frames for the temporal step (the raw frames on the
-        # identity geometry, uploaded here when both models are injected)
-        with timer("prescale"):
-            if dev_frames is None:
-                dev_frames = upload_frames(frames, dev)
-
-        # first-frame seeding: backward flow from the first sampled frame
-        # with >= 4 keypoints.  On the 4:2:0 path the reference flows over
-        # OpenCV's decode of the planes (its host copies), not over the
-        # device canvas, so the planes are decoded here as OpenCV does.  A
+        # first-frame seeding, per clip: backward flow from the first
+        # sampled frame with >= 4 keypoints, searched within the clip's real
+        # length, over the frames the JAX package seeds over (on the 4:2:0
+        # path OpenCV's decode of the planes, not the device canvas).  A
         # stream's later blocks arrive with a warm carry: only its first
         # block seeds
+        if _stream_in is not None:
+            spans = []
+        elif _clip_lens is None:
+            spans = [(0, n)]
+        else:
+            spans = [(ci * L, ln) for ci, ln in enumerate(_clip_lens)]
         with timer("temporal"):
-            if _stream_in is None and mem_valid[0].sum() < 4:
-                found = next((j for j in sampled if mem_valid[j].sum() >= 4), None)
-                if found:
-                    seed_frames = dev_frames[: found + 1]
-                    if planes is not None:
-                        seed_frames = i420_to_bgr_exact(planes[: found + 1])
-                    seed_xy, seed_ok = temporal.backward_seed(
-                        seed_frames,
-                        torch.from_numpy(mem_kp[found, :, :2]).to(dev),
-                        torch.from_numpy(mem_valid[found]).to(dev),
-                        cfg,
-                    )
-                    seed_xy, seed_ok = seed_xy.cpu().numpy(), seed_ok.cpu().numpy()
-                    for j in range(found):  # memoized entries win per label
-                        take = seed_ok[j] & ~mem_valid[j]
-                        mem_kp[j, take, :2] = seed_xy[j, take]
-                        mem_valid[j] |= seed_ok[j]
-            planes = None  # seeding was the planes' last reader
-
-        gumbel_cache: dict[int, torch.Tensor] = {}
-
-        def gumbel_fn(t: int) -> torch.Tensor:
-            if t not in gumbel_cache:
-                g = ransac_gumbel(self.seed, t, cfg.homography.ransac_iters, 57)
-                gumbel_cache[t] = torch.from_numpy(g).to(dev)
-            return gumbel_cache[t]
+            self._seed_clips(spans, sampled, mem_kp, mem_valid, cfg,
+                             lambda lo, hi: self._seed_frames(prescaled, geom, dev_frames, lo, hi))
+            prescaled = None  # seeding was the host copy's last reader
+        gumbel_fn = self._ransac_draws(cfg)
 
         # the temporal step, frame by frame, with per-frame carry
         # checkpoints: when the reference's on-demand keypoint detection
@@ -599,7 +719,9 @@ class CoordinateModel:
         # the flagged frames get model keypoints and the loop resumes at the
         # first of them.  A stream's block starts from the previous block's
         # carry, and its first frame flows from that block's last frame;
-        # the rounds stay inside the block
+        # the rounds stay inside the block.  Flattened clips restart from
+        # init_carry at each clip's first frame, whose previous frame is the
+        # stream's previous frame (the JAX package's flattened scan)
         carries = [temporal.init_carry(cfg, dev) if _stream_in is None else _stream_in["carry"]] + [None] * n
         outs: list = [None] * n
         start = 0
@@ -612,7 +734,10 @@ class CoordinateModel:
                         prev = dev_frames[t - 1]
                     else:
                         prev = dev_frames[0] if _stream_in is None else _stream_in["prev_frame"]
-                    tg = t0 + t
+                    tg = int(tt[t])
+                    carry = carries[t]
+                    if _clip_lens is not None and tg == 0 and t > 0:
+                        carry = temporal.init_carry(cfg, dev)
                     xs = temporal.FrameInputs(
                         frame_bgr=dev_frames[t],
                         prev_frame_bgr=prev,
@@ -627,7 +752,7 @@ class CoordinateModel:
                         t=tg,
                         det_embed=det[t, :, 7:] if appearance else None,
                     )
-                    carries[t + 1], outs[t] = temporal.temporal_step(carries[t], xs, cfg, gumbel_fn)
+                    carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, gumbel_fn)
                     self.frames_stepped += 1
                 need = torch.stack([o.need_kp for o in outs]).cpu().numpy()
             flagged = np.flatnonzero(need & ~mem_attempted)
@@ -642,27 +767,34 @@ class CoordinateModel:
             start = int(flagged[0])
 
         with timer("assembly"):
-            out = temporal.FrameOutputs(
-                *(torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(len(outs[0])))
+            # the outputs and the detector rows in one device-to-host copy
+            *leaves, det_np = drain_together(
+                *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
             )
-            det_np = det[..., :7].cpu().numpy()
-            res = self._assemble(
-                out,
-                det_np[..., :4],
-                det_np[..., 4],
-                det_np[..., 5].astype(np.int32),
-                det_np[..., 6] > 0.5,
-                fps,
-                img_hw,
-                t_offset=t0,
-            )
+            out = temporal.FrameOutputs(*leaves)
+            parts = [(0, n, t0)] if _clip_lens is None else [(ci * L, ln, 0) for ci, ln in enumerate(_clip_lens)]
+            res = [
+                self._assemble(
+                    temporal.FrameOutputs(*(leaf[base : base + ln] for leaf in out)),
+                    det_np[base : base + ln, :, :4],
+                    det_np[base : base + ln, :, 4],
+                    det_np[base : base + ln, :, 5].astype(np.int32),
+                    det_np[base : base + ln, :, 6] > 0.5,
+                    fps,
+                    img_hw,
+                    t_offset=off,
+                )
+                for base, ln, off in parts
+            ]
+        if _clip_lens is not None:
+            return res
         if _stream_out:
             # the last frame in a buffer of its own (its clip's buffer is
             # freed), with the clip's row stride: the next block's first
             # flow step reads it in place
             state = {"carry": carries[n], "prev_frame": carry_frame(dev_frames[n - 1]), "t": t0 + n, "img_hw": img_hw}
-            return res, state
-        return res
+            return res[0], state
+        return res[0]
 
     def stream_coordinates(
         self,
@@ -673,6 +805,7 @@ class CoordinateModel:
         verbose: bool = False,
         calibration: bool = False,
         prefetch: bool | str = "auto",
+        profile: StageTimer | None = None,
         timer: StageTimer | None = None,
     ):
         """:meth:`get_coordinates` of a long stream in bounded memory (e.g.
@@ -694,12 +827,14 @@ class CoordinateModel:
 
         ``prefetch="auto"``: with a spare CPU core, a worker thread pulls
         the next block from ``segments`` (the decode) and prescales it on
-        the host while this block runs on the device.  ``timer``
-        accumulates the stages over the blocks."""
+        the host while this block runs on the device.  ``profile`` or
+        ``timer`` (not both) accumulates the stages over the blocks."""
+        if profile is not None and timer is not None:
+            raise ValueError("pass profile= or timer=, not both (they are the same StageTimer)")
         chunk = self.config.chunk_frames
         state: dict | None = None
         buf: np.ndarray | None = None
-        timer = timer or StageTimer(self.device)
+        timer = profile or timer or StageTimer(self.device)
 
         def run(block, prescaled=None):
             nonlocal state

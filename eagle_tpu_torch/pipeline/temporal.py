@@ -19,6 +19,11 @@ the tracker.  Per frame, in order:
      motion warp: fitted to the keypoint flow, or with ``gmc="features"``
      to grid corners of the previous frame tracked by the same flow kernel
      (:func:`_features_gmc_warp`).
+
+:func:`temporal_step_clips` is one step of C clips at once (the JAX
+package's clip-batched step): the flow of all clips is one launch of the
+kernel (the features GMC's corners another), RANSAC is gated once on any
+clip's need, and the rest runs clip by clip.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from eagle_tpu_torch.ops import color
 from eagle_tpu_torch.ops.corners import fit_similarity_robust, grid_corners
 from eagle_tpu_torch.ops.geometry import masked_median, synthesize_keypoints
 from eagle_tpu_torch.ops.homography import ransac_homography, sample_minimal_sets
-from eagle_tpu_torch.ops.optical_flow import lk_flow
+from eagle_tpu_torch.ops.optical_flow import lk_flow, lk_flow_clips
 from eagle_tpu_torch.track import botsort
 
 FLOW_BACKENDS = ("xla", "pallas2")
@@ -133,6 +138,41 @@ def estimate_gmc_warp(
     return torch.where(cnt >= 3, aff, trans)
 
 
+class _WorkMap(NamedTuple):
+    """Original pixels <-> the frames' pixels (the canvas with a working
+    geometry, identity otherwise) in the JAX package's compiled float32
+    arithmetic: XLA fuses ``x * gain + pad`` into one multiply-add and
+    turns the division by the constant gain into a multiplication by its
+    float32 reciprocal."""
+
+    scale: torch.Tensor  # () float32 gain
+    inv: torch.Tensor  # () float32 1 / gain, rounded once
+    pad: torch.Tensor  # (2,) float32 pad_x, pad_y
+
+    def to_frame(self, xy: torch.Tensor) -> torch.Tensor:
+        # the float64 product of two float32 values and the sum with an
+        # integer pad are exact, so one rounding gives the fused result
+        return (xy.to(torch.float64) * self.scale.to(torch.float64) + self.pad.to(torch.float64)).to(torch.float32)
+
+    def to_orig(self, xy: torch.Tensor) -> torch.Tensor:
+        return (xy - self.pad) * self.inv
+
+
+def _to_work(cfg: PipelineConfig, dev) -> _WorkMap:
+    g = cfg.work
+    gain = np.float32(g.gain if g.enabled else 1.0)
+    return _WorkMap(
+        torch.tensor(gain, device=dev),
+        torch.tensor(np.float32(1.0) / gain, device=dev),
+        torch.tensor([g.pad_x, g.pad_y] if g.enabled else [0.0, 0.0], dtype=torch.float32, device=dev),
+    )
+
+
+def _flow_args(cfg: PipelineConfig) -> dict:
+    f = cfg.flow
+    return dict(window=f.window, levels=f.pyramid_levels, iterations=f.iterations, epsilon=f.epsilon)
+
+
 def flow_with_filters(
     frame_bgr: torch.Tensor,
     prev_frame_bgr: torch.Tensor,
@@ -147,22 +187,16 @@ def flow_with_filters(
     the letterbox for sampling only."""
     if cfg.flow.backend not in FLOW_BACKENDS:
         check_config(cfg)
+    wmap = _to_work(cfg, kp_xy.device)
+    new_w, status = lk_flow(prev_frame_bgr, frame_bgr, wmap.to_frame(kp_xy), kp_valid, **_flow_args(cfg))
+    return _flow_filters(frame_bgr, kp_xy, new_w, status, cfg, wmap)
+
+
+def _flow_filters(frame_bgr, kp_xy, new_w, status, cfg: PipelineConfig, wmap: _WorkMap) -> tuple[torch.Tensor, torch.Tensor]:
+    """The filters of :func:`flow_with_filters` on the flow step's result
+    (``new_w`` in the frame's pixels)."""
     g = cfg.work
-    dev = kp_xy.device
-    scale = float(g.gain) if g.enabled else 1.0
-    pad = torch.tensor([g.pad_x, g.pad_y] if g.enabled else [0.0, 0.0], dtype=torch.float32, device=dev)
-    scale_t = torch.tensor(scale, dtype=torch.float32, device=dev)
-    new_w, status = lk_flow(
-        prev_frame_bgr,
-        frame_bgr,
-        kp_xy * scale_t + pad,
-        kp_valid,
-        window=cfg.flow.window,
-        levels=cfg.flow.pyramid_levels,
-        iterations=cfg.flow.iterations,
-        epsilon=cfg.flow.epsilon,
-    )
-    new_pts = (new_w - pad) / scale_t
+    new_pts = wmap.to_orig(new_w)
     if g.enabled:
         status = (
             status
@@ -183,7 +217,7 @@ def flow_with_filters(
     new_int = torch.trunc(new_pts)
     k = kp_xy.shape[0]
     hue_both = color.window_mean_hue(
-        frame_bgr, torch.cat([kp_xy * scale_t + pad, new_int * scale_t + pad], dim=0)
+        frame_bgr, torch.cat([wmap.to_frame(kp_xy), wmap.to_frame(new_int)], dim=0)
     )
     hue_ok = torch.abs(hue_both[k:] - hue_both[:k]) <= cfg.flow.hue_delta_max
     return new_int, status & z_ok & hue_ok
@@ -243,27 +277,22 @@ def _calibrate(frame_bgr, kp_xy, kp_valid, cfg: PipelineConfig) -> torch.Tensor:
     g = cfg.work
     if not g.enabled:
         return calibrate_keypoints(frame_bgr, kp_xy, kp_valid)
-    dev = kp_xy.device
-    pad = torch.tensor([g.pad_x, g.pad_y], dtype=torch.float32, device=dev)
-    gain = torch.tensor(g.gain, dtype=torch.float32, device=dev)
-    kpw = torch.trunc(kp_xy * gain + pad)
+    wmap = _to_work(cfg, kp_xy.device)
+    kpw = torch.trunc(wmap.to_frame(kp_xy))
     snapped = calibrate_keypoints(frame_bgr, kpw, kp_valid)
     moved = (snapped != kpw).any(dim=-1, keepdim=True)
-    return torch.where(moved, torch.trunc((snapped - pad) / gain), kp_xy)
+    return torch.where(moved, torch.trunc(wmap.to_orig(snapped)), kp_xy)
 
 
-def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig):
+def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, flow=None):
     """Flow + cadence merge + synthesis + calibration.  Returns (flow_xy,
     flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h) with do_h a
-    host bool."""
+    0-d bool tensor.  ``flow``: the filtered flow, when the caller ran it
+    (the clip-batched step)."""
     t0 = xs.t > 0
-    flow_xy, flow_valid = flow_with_filters(
-        xs.frame_bgr,
-        xs.prev_frame_bgr,
-        carry.kp_xy,
-        carry.kp_valid & t0,
-        cfg,
-    )
+    if flow is None:
+        flow = flow_with_filters(xs.frame_bgr, xs.prev_frame_bgr, carry.kp_xy, carry.kp_valid & t0, cfg)
+    flow_xy, flow_valid = flow
 
     model_valid = xs.model_kp_valid
     model_xy = xs.model_kp[:, :2]
@@ -291,7 +320,7 @@ def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig):
 
     corr_valid = kp_valid & torch.from_numpy(_ON_PLANE).to(kp_valid.device)
     do_h = (xs.is_h_frame | carry.retry_h) & (corr_valid.sum() >= cfg.homography.min_points)
-    return flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, bool(do_h)
+    return flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h
 
 
 def _run_ransac(kp_xy, corr_valid, gumbel: torch.Tensor, cfg: PipelineConfig):
@@ -319,7 +348,7 @@ def temporal_step(
     flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(
         carry, xs, cfg
     )
-    if do_h:
+    if bool(do_h):
         H_new, inliers, h_success = _run_ransac(kp_xy, corr_valid, gumbel_fn(xs.t), cfg)
     else:
         H_new, inliers = carry.H, kp_valid
@@ -329,28 +358,29 @@ def temporal_step(
     )
 
 
-def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flow_valid) -> torch.Tensor:
+def _grid_corner_flow(prev_bgr, curr_bgr, cfg: PipelineConfig):
+    """The features GMC's corners: (pts, pvalid) of the previous frame
+    (:func:`grid_corners`) and their flow to the current frame (new_pts,
+    status), one launch of the flow kernel on the card at K = 240."""
+    pts, pvalid = grid_corners(prev_bgr)
+    return (pts, pvalid, *lk_flow(prev_bgr, curr_bgr, pts, pvalid, **_flow_args(cfg)))
+
+
+def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flow_valid, corners=None) -> torch.Tensor:
     """Full-frame sparse-feature GMC (``TrackerConfig.gmc="features"``,
     boxmot's sparse-optical-flow GMC): the grid corners of the previous
     frame, tracked to the current frame by the flow step (the CUDA kernel
-    on the card, at K = 240), and the robust 4-DOF fit.  Below
+    on the card, at K = 240; ``corners`` is that result when the caller ran
+    it, :func:`_grid_corner_flow`), and the robust 4-DOF fit.  Below
     ``gmc_min_features`` inliers the keypoint-flow affine takes its place
     (a ``torch.where``: no host sync).
 
     With a working geometry the frames are canvases: the fit runs in canvas
     pixels and maps back to original ones (``x_c = g x_o + p``: ``R_o =
     R_c``, ``t_o = (R_c p + t_c - p) / g``)."""
-    pts, pvalid = grid_corners(xs.prev_frame_bgr)
-    new_pts, status = lk_flow(
-        xs.prev_frame_bgr,
-        xs.frame_bgr,
-        pts,
-        pvalid,
-        window=cfg.flow.window,
-        levels=cfg.flow.pyramid_levels,
-        iterations=cfg.flow.iterations,
-        epsilon=cfg.flow.epsilon,
-    )
+    if corners is None:
+        corners = _grid_corner_flow(xs.prev_frame_bgr, xs.frame_bgr, cfg)
+    pts, pvalid, new_pts, status = corners
     warp, n_inl = fit_similarity_robust(pts, new_pts, pvalid & status)
     g = cfg.work
     if g.enabled:  # with the padding as Python numbers: nothing is uploaded
@@ -363,7 +393,7 @@ def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flo
 
 
 def _post_homography(
-    carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
+    carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success, corners=None
 ):
     H = torch.where(h_success, H_new, carry.H)
     H_ok = carry.H_ok | h_success
@@ -375,7 +405,7 @@ def _post_homography(
 
     gmc = None
     if cfg.tracker.gmc == "features":
-        gmc = _features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid)
+        gmc = _features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid, corners)
     elif cfg.tracker.gmc != "off":
         gmc = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=cfg.tracker.gmc == "affine")
     tracker, tout = botsort.step(
@@ -404,6 +434,77 @@ def _post_homography(
         track_valid=tout.valid,
     )
     return new_carry, out
+
+
+def clip_at(tree, c: int):
+    """Clip ``c`` of a carry, inputs or outputs with a leading clip axis
+    (nested named tuples of tensors; host sequences are indexed too)."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(clip_at(v, c) for v in tree))
+    v = tree[c]
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def stack_clips(trees: list):
+    """The inverse of :func:`clip_at`: per-clip named tuples of tensors ->
+    one with a leading clip axis."""
+    first = trees[0]
+    if hasattr(first, "_fields"):
+        return type(first)(*(stack_clips([t[i] for t in trees]) for i in range(len(first))))
+    return torch.stack(trees)
+
+
+def temporal_step_clips(
+    carries: TemporalCarry,
+    xs: FrameInputs,
+    cfg: PipelineConfig,
+    gumbel_fn,
+) -> tuple[TemporalCarry, FrameOutputs]:
+    """One time step for a batch of C clips: every carry and input leaf has
+    a leading clip axis (``is_kp_frame``, ``is_h_frame`` and ``t`` are host
+    sequences of C; the frames (C, H, W, 3) views in the layout
+    :func:`lk_flow_clips` takes).  Counterpart of the JAX package's
+    ``temporal_step_clips``:
+
+    - the flow of all C clips is one launch of the flow kernel, and with
+      ``gmc="features"`` the 240 grid corners of all clips one more;
+    - RANSAC is gated once, on any clip's ``do_h`` (one host sync): then
+      every clip solves, each with its own within-clip ``t``'s draws
+      (``gumbel_fn(t)``), and keeps its result only where its own gate is
+      on (``h_success = ok & do_h``);
+    - the merge, synthesis, calibration and the tracker run clip by clip.
+
+    Each clip's carry and outputs equal :func:`temporal_step` on that clip
+    alone, bit for bit."""
+    n_clips = len(xs.t)
+    clips = [clip_at(xs, c) for c in range(n_clips)]
+    cars = [clip_at(carries, c) for c in range(n_clips)]
+    wmap = _to_work(cfg, carries.kp_xy.device)
+    live = torch.stack([car.kp_valid & (x.t > 0) for car, x in zip(cars, clips)])
+    new_w, status = lk_flow_clips(xs.prev_frame_bgr, xs.frame_bgr, wmap.to_frame(carries.kp_xy), live, **_flow_args(cfg))
+    pre = [
+        _pre_homography(car, x, cfg, flow=_flow_filters(x.frame_bgr, car.kp_xy, new_w[c], status[c], cfg, wmap))
+        for c, (car, x) in enumerate(zip(cars, clips))
+    ]
+    corners = [None] * n_clips
+    if cfg.tracker.gmc == "features":
+        grids = [grid_corners(p) for p in xs.prev_frame_bgr]
+        pts, pvalid = torch.stack([g[0] for g in grids]), torch.stack([g[1] for g in grids])
+        moved, ok = lk_flow_clips(xs.prev_frame_bgr, xs.frame_bgr, pts, pvalid, **_flow_args(cfg))
+        corners = [(pts[c], pvalid[c], moved[c], ok[c]) for c in range(n_clips)]
+    do_h = torch.stack([p[6] for p in pre])
+    dev = do_h.device
+    if bool(do_h.any()):
+        solved = [_run_ransac(p[2], p[5], gumbel_fn(x.t), cfg) for p, x in zip(pre, clips)]
+    else:
+        solved = [(car.H, p[3], torch.zeros((), dtype=torch.bool, device=dev)) for car, p in zip(cars, pre)]
+    steps = [
+        _post_homography(car, x, cfg, *p[:5], H_new, inliers, ok & p[6], corners[c])
+        for c, (car, x, p, (H_new, inliers, ok)) in enumerate(zip(cars, clips, pre, solved))
+    ]
+    return stack_clips([s[0] for s in steps]), stack_clips([s[1] for s in steps])
 
 
 def backward_seed(

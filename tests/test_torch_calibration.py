@@ -79,6 +79,31 @@ def test_oracle_slice_with_calibration_matches_jax():
     assert moved >= len(sc.frames) // 2, "calibration must move keypoints on most frames"
 
 
+def test_config_calibration_follows_the_argument_as_in_jax():
+    """The JAX package's rule: ``get_coordinates``' ``calibration``
+    argument (default False) replaces the configuration's.  A model built
+    with ``calibration=True`` in its config and called without the
+    argument runs uncalibrated in both packages (the port calibrated
+    before: its keypoints differed from the JAX package's on 12 of 12
+    frames); with the argument both calibrate."""
+    sc = make_scene(num_frames=12, width=640, height=360, num_players=4, fps=12, seed=7)
+    kw = dict(num_homography=1, num_keypoint_detection=3)
+
+    def run(model_cls, cfg, **extra):
+        return model_cls(
+            config=cfg.replace(calibration=True), keypoint_fn=_off_line_keypoints(sc),
+            detector_fn=oracle_detector_fn(sc), **extra,
+        ).get_coordinates(sc.frames, sc.fps, **kw)
+
+    want = run(JModel, JCFG, verbose_init=False)
+    got = run(TModel, TCFG, device="cpu")
+    assert_coords_match(got, want, boundary_atol=5e-3)
+    calibrated = TModel(
+        keypoint_fn=_off_line_keypoints(sc), detector_fn=oracle_detector_fn(sc), device="cpu"
+    ).get_coordinates(sc.frames, sc.fps, calibration=True, **kw)
+    assert sum(got[i]["Keypoints"] != calibrated[i]["Keypoints"] for i in got) >= len(sc.frames) // 2
+
+
 def test_builtin_slice_with_calibration_matches_jax():
     """Working geometry (4:2:0 letterbox to a 160x96 canvas): the snap runs
     in canvas pixels and only moved points map back."""

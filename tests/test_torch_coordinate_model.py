@@ -246,6 +246,29 @@ def test_backward_seed_flows_over_the_cv2_decode(monkeypatch):
     np.testing.assert_array_equal(got_xy[got_valid], want_xy[want_valid])
 
 
+def test_upload_decodes_in_pieces_bit_equal_to_one_decode(monkeypatch):
+    """The 4:2:0 upload is decoded PIECE frames at a time into one uint8
+    frame buffer (the decode's float temporaries are one piece's, not the
+    clip's); its bytes equal one ``i420_to_bgr`` of the whole clip's planes
+    (20 frames: a full piece and a short one)."""
+    from eagle_tpu_torch.ops.preprocess import i420_to_bgr
+    from eagle_tpu_torch.pipeline import coordinate_model as cm
+
+    frames = np.random.default_rng(8).integers(0, 256, (cm.PIECE + 4, 192, 320, 3), dtype=np.uint8)
+    model = TModel(config=_reduced_cfg(TCFG), device="cpu")
+    geom = model._geometry((192, 320))
+    whole = i420_to_bgr(torch.from_numpy(host_letterbox_i420(frames, geom)))
+    decoded = []
+
+    def spy(planes):
+        decoded.append(len(planes))
+        return i420_to_bgr(planes)
+
+    monkeypatch.setattr(cm, "i420_to_bgr", spy)
+    assert torch.equal(model.upload(frames, geom), whole)
+    assert decoded == [cm.PIECE, 4]
+
+
 def test_default_device_is_the_card_without_fallback():
     """No card and no explicit device="cpu": construction raises."""
     if torch.cuda.is_available():
@@ -266,7 +289,9 @@ import eagle_tpu_torch.models.osnet
 import eagle_tpu_torch.ops.corners
 import eagle_tpu_torch.ops.embed
 import eagle_tpu_torch.ops.kmeans
+import eagle_tpu_torch.pipeline.multiclip
 import eagle_tpu_torch.pipeline.processor
+import eagle_tpu_torch.pipeline.transfer
 from eagle_tpu_torch.config import DEFAULT_CONFIG
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 for m in pkgutil.walk_packages(eagle_tpu_torch.__path__, "eagle_tpu_torch."):
@@ -302,6 +327,13 @@ blocks = list(plain.stream_coordinates([frames[:2], frames[2:]], 3, prefetch=Tru
 assert sorted(k for b in blocks for k in b) == [0, 1, 2]
 from eagle_tpu_torch.pipeline.serve import serve_clips
 assert len(list(serve_clips(plain, [frames, frames[:2]], 3, overlap=True))) == 2
+# multi-clip runs (the clip-batched step) and the other prescale modes
+from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
+assert [len(r) for r in MultiClipRunner(plain).run([frames, frames[:2]], 3)] == [3, 2]
+for extra in (dict(prescale="device"), dict(upload_format="bgr")):
+    built = CoordinateModel(config=DEFAULT_CONFIG.replace(**extra), device="cpu")
+    geom = built._geometry((360, 640))
+    assert built.upload(rng.integers(0, 256, (2, 360, 640, 3), dtype=np.uint8), geom).shape == (2, 544, 960, 3)
 # the checkpoint writers chip_smoke.py uses, and chip_smoke.py itself
 import chip_smoke
 from tests.torch_parity import hrnet_reference_state_dict, yolov8_ultralytics_state_dict

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the fused CUDA flow kernel against its plain
 version (frames whose rows are not whole 16-byte chunks included, and the
 features GMC's 240 grid corners of a frame pair), its one launch a call,
-its input checks and its launch count.
+its input checks and its launch count; its clip-batched launch (C frame
+pairs in one launch) against C single launches and the plain version; the
+one-shot run's peak device memory against its length.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -254,3 +256,97 @@ def test_stream_on_the_card_equals_one_shot_without_staging(dev):
     assert of.staged == 0
     assert of.launches - launches >= len(frames) - 1
     assert sum(len(fr["Keypoints"]) for fr in one.values()) > 4 * len(frames)
+
+
+def _clip_buffer(dev, hw, n_clips: int, length: int, seed: int = 3):
+    """``n_clips`` clips of ``length`` frames (smoothed noise panned 1-3 px a
+    frame, another texture a clip) in one :func:`alloc_frames` buffer,
+    viewed as (C, L, H, W, 3), as the multi-clip runner holds them."""
+    buf = of.alloc_frames(n_clips * length, *hw, dev)
+    for c in range(n_clips):
+        for t in range(length):
+            buf[c * length + t].copy_(torch.from_numpy(_frames(hw, pan=1 + c % 3, seed=seed + c)[min(t, 1)]))
+    return buf.unflatten(0, (n_clips, length))
+
+
+@pytest.mark.parametrize("hw,k", [((544, 960), 57), ((720, 1280), 240), ((480, 854), 57)])
+def test_batched_launch_equals_single_launches_and_plain(dev, hw, k):
+    """C = 4 frame pairs in one launch (frame 1 of each clip against frame
+    0, rows padded at 854): every clip's points and status bit-equal to its
+    single launch, and to the plain version (status bit-equal, positions
+    within 1e-2 px); one launch counted at (C, K)."""
+    clips = _clip_buffer(dev, hw, 4, 3)
+    prev, curr = clips[:, 0], clips[:, 1]
+    pts = torch.stack([torch.from_numpy(_points(k, hw, seed=10 + c)) for c in range(4)]).to(dev)
+    valid = torch.ones(4, k, dtype=torch.bool, device=dev)
+    valid[1, k // 3] = False
+    before, staged = of.launches_by_ck.get((4, k), 0), of.staged
+    g, s = of.lk_flow_clips(prev, curr, pts, valid)
+    torch.cuda.synchronize()
+    assert of.launches_by_ck[(4, k)] == before + 1
+    for c in range(4):
+        g1, s1 = of.lk_flow(prev[c], curr[c], pts[c], valid[c])
+        assert torch.equal(g[c], g1) and torch.equal(s[c], s1), f"clip {c}"
+        gp, sp = of.lk_flow_plain(prev[c].contiguous(), curr[c].contiguous(), pts[c], valid[c])
+        sp = sp.cpu().numpy()
+        np.testing.assert_array_equal(s[c].cpu().numpy(), sp)
+        assert sp.sum() >= (k - 1) // 2
+        np.testing.assert_allclose(g[c].cpu().numpy()[sp], gp.cpu().numpy()[sp], atol=1e-2)
+    assert of.staged == staged
+
+
+def test_batched_launch_of_one_clip_equals_the_single_launch(dev):
+    prev, curr, pts, valid = _case(dev, 57)
+    g1, s1 = of.lk_flow(prev, curr, pts, valid)
+    g, s = of.lk_flow_clips(prev[None], curr[None], pts[None], valid[None])
+    torch.cuda.synchronize()
+    assert torch.equal(g[0], g1) and torch.equal(s[0], s1)
+
+
+def test_batched_launch_checks_the_clip_stride(dev):
+    """A clip stride off the 16-byte grid, frames of another stride than
+    the other frames', or CPU points raise before launching."""
+    clips = _clip_buffer(dev, (100, 160), 2, 2)
+    h, w = 100, 160
+    pitch = clips.stride(2)
+    pts = torch.from_numpy(np.stack([_points(8, (h, w))] * 2)).to(dev)
+    valid = torch.ones(2, 8, dtype=torch.bool, device=dev)
+    flat = torch.zeros(2 * h * pitch + 64, dtype=torch.uint8, device=dev)
+    odd = torch.as_strided(flat, (2, h, w, 3), (h * pitch + 8, pitch, 3, 1))
+    before = of.launches
+    with pytest.raises(ValueError, match="clip stride"):
+        of.lk_flow_clips(odd, odd, pts, valid)
+    longer = _clip_buffer(dev, (h, w), 2, 3)  # clips of 3 frames: another clip stride
+    with pytest.raises(ValueError, match="curr_bgr"):
+        of.lk_flow_clips(clips[:, 0], longer[:, 1], pts, valid)
+    with pytest.raises(ValueError, match="CUDA"):  # lk_flow_clips would take the plain version for CPU points
+        of.lk_flow_clips_cuda(clips[:, 0], clips[:, 1], pts.cpu(), valid.cpu())
+    assert of.launches == before
+
+
+def test_one_shot_peak_grows_by_the_canvases_only(dev):
+    """The one-shot 4:2:0 path decodes PIECE frames at a time into one
+    uint8 buffer: from 48 to 96 frames of 1280x720 the peak device memory
+    (``max_memory_allocated``) grows by at most the 48 more 544x960 BGR
+    canvases plus 5% (the whole-clip decode held ~46 MB of float
+    temporaries a frame)."""
+    from scipy.ndimage import gaussian_filter
+
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    rng = np.random.default_rng(5)
+    tex = gaussian_filter(rng.normal(size=(720, 1280 + 96, 3)), (2.0, 2.0, 0))
+    world = np.clip(128 + 40 * tex / tex.std(), 0, 255).astype(np.uint8)
+    frames = np.ascontiguousarray(np.stack([world[:, t : t + 1280] for t in range(96)]))
+    model = CoordinateModel(device="cuda")
+    model.get_coordinates(frames[:16], 24, num_keypoint_detection=3)  # warm-up
+
+    def peak(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model.get_coordinates(frames[:n], 24, num_keypoint_detection=3)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    p48, p96 = peak(48), peak(96)
+    assert p96 - p48 <= 1.05 * 48 * 544 * 960 * 3, (p48, p96)

@@ -7,6 +7,8 @@ Tolerances: the prescale bytes, the I420 -> BGR bytes (both decodes) and
 the flow gray are bit-equal; the float resizes agree to 1e-5 (the same
 interpolation matrices, summed in another order)."""
 
+import dataclasses
+
 import cv2
 import jax.numpy as jnp
 import numpy as np
@@ -71,10 +73,17 @@ def dataclass_tuple(g):
 
 
 def test_letterbox_outside_native_envelope_raises():
+    """Outside the fused kernel's envelope (an upscale) the 4:2:0 letterbox
+    runs the unfused native path, byte-equal to the JAX package's cv2 one;
+    only a geometry without the 4:2:0 placement parity raises."""
     g = tp.compute_work_geometry((192, 320), 960)  # an upscale
-    frames = np.zeros((1, 192, 320, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="downscaling"):
-        tp.host_letterbox_i420(frames, g)
+    frames = np.random.default_rng(4).integers(0, 256, (2, 192, 320, 3), np.uint8)
+    np.testing.assert_array_equal(
+        tp.host_letterbox_i420(frames, g), jp.host_letterbox_i420(frames, jp.compute_work_geometry((192, 320), 960))
+    )
+    odd = dataclasses.replace(g, pad_y=g.pad_y + 1)
+    with pytest.raises(ValueError, match="even placement"):
+        tp.host_letterbox_i420(frames, odd)
 
 
 def test_resizes_match():

@@ -165,3 +165,32 @@ def test_video_frame_source(small_video, fps):
     assert len(tvideo.VideoFrameSource(small_video, fps, length=5)) == 5
     src.close()
     jsrc.close()
+
+
+def test_jax_api_keywords_verbose_init_and_profile():
+    """Code written against the JAX package's API runs on the port: the
+    verify skill's surface 2 spelled for the port (``verbose_init=False``,
+    then the Processor), ``profile=`` with a StageTimer on
+    ``get_coordinates`` and ``stream_coordinates``, and ``timer=`` beside
+    ``profile=`` refused."""
+    from eagle_tpu_torch.pipeline.processor import Processor
+
+    scene = make_scene(num_frames=12, width=960, height=540, num_players=6, fps=12, seed=3)
+    def model():  # the oracle detector walks the clip: a fresh one each run
+        return TModel(keypoint_fn=oracle_keypoint_fn(scene), detector_fn=oracle_detector_fn(scene),
+                      verbose_init=False, device="cpu")
+
+    m = model()
+    timer = StageTimer(m.device)
+    coords = m.get_coordinates(scene.frames, 12, num_keypoint_detection=3, verbose=False, profile=timer)
+    df, teams = Processor(coords, scene.frames, 12, device="cpu").process_data()
+    assert len(df) == 12 and teams
+    assert {"prescale", "detector", "keypoints", "temporal", "assembly"} <= set(timer.seconds)
+    streamed = StageTimer(m.device)
+    blocks = list(model().stream_coordinates([scene.frames[:6], scene.frames[6:]], 12, num_keypoint_detection=3,
+                                             prefetch=False, profile=streamed))
+    assert {k: v for b in blocks for k, v in b.items()} == coords and "temporal" in streamed.seconds
+    with pytest.raises(ValueError, match="not both"):
+        m.get_coordinates(scene.frames[:2], 12, profile=timer, timer=timer)
+    with pytest.raises(ValueError, match="not both"):
+        next(m.stream_coordinates([scene.frames[:2]], 12, profile=timer, timer=timer))
