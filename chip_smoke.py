@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero, nothing is caught):
 
-1. build: the CUDA kernel (nvcc, sm_90a) and the host prescale (g++), in
+1. build: the CUDA kernels (nvcc, sm_90a: the LK flow and the JV
+   assignment) and the host C++ (g++: the prescale and the float64 JV), in
    parallel, from the sources in this checkout;
 2. kernel: every kernel of the main path against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes -- the LK
@@ -53,7 +54,24 @@ Phases (any failure exits non-zero, nothing is caught):
    zeroed just before and read just after (K = 57 and K = 240 apart),
    with its rate and stage milliseconds, ``reid`` among them; (d) the bf16
    OSNet's embeddings against its float32 self on one piece;
-7. stream: (a) the 24-frame oracle clip streamed on the card at
+7. exact (after the tracker phase): the JV assignment kernel behind
+   ``TrackerConfig.assignment="exact"``: (a) on tracking-like matrices
+   (the tracker's extended matrices from the slice model's detections on
+   the slice's frames) and random ones at n = 192 (the main path's size,
+   the cost staged in shared memory) and n = 300 (read from global
+   memory), and as one launch over 4 matrices: indices bit-equal to the
+   plain version on copies on the CPU, the batched launch to single
+   launches, totals equal to scipy's ``linear_sum_assignment`` and the
+   host JV's (float64) within 1e-5; device ms a launch, augmenting steps,
+   the bound, the plain version's and scipy's host ms; (b) the 12-frame
+   oracle clip with the exact solver (24 track and 32 detection slots),
+   card == plain CPU path, 3 launches a temporal step; (c) the full-width
+   slice with the exact solver on the slice model's weights: fps, stage
+   ms, launches (3 a step, shared path, no auction round), then both
+   solvers' slices under the profiler (the temporal step's blocking calls
+   and idle share, the JV kernels' device time) and the share of frames
+   whose track ids differ from the auction slice's;
+8. stream: (a) the 24-frame oracle clip streamed on the card at
    ``chunk_frames=16`` in ragged segments (blocks of 16 + 8) equals the
    card's one-shot run exactly and the port's CPU stream within the REF_*
    tolerances, with no frame staged into a pitched copy; (b) the
@@ -72,7 +90,7 @@ Phases (any failure exits non-zero, nothing is caught):
    (``tests/torch_parity.py``) load back through
    ``CoordinateModel(keypoint_checkpoint=, detector_checkpoint=)`` with
    bit-equal state dicts and the same ``get_coordinates`` on 16 frames;
-8. multi-clip: (a) the clip-batched launch of the flow kernel
+9. multi-clip: (a) the clip-batched launch of the flow kernel
    (``lk_flow_clips``), 4 pairs of consecutive raw 1280x720 frames in one
    launch at K = 57 and K = 240 (grid corners), against the plain version
    pair by pair (status bit-equal, positions within 1e-2 px) and against 4
@@ -85,13 +103,13 @@ Phases (any failure exits non-zero, nothing is caught):
    GMC: each clip equals its own run on the card, the card run equals the
    CPU's, one batched launch a step for all clips (counters zeroed just
    before and read just after), fps against sequential;
-9. prescale: the slice model on 640x360 and 854x480 frames (the 4:2:0
+10. prescale: the slice model on 640x360 and 854x480 frames (the 4:2:0
    letterbox outside the fused kernel's envelope), their canvases equal to
    the CPU host path's bytes; ``prescale="device"`` on the slice's frames
    within 4 LSB of the host canvas; prescale ms a frame, host against
    device; (stream phase (c) also reads the one-shot peak at 48 and 96
    frames: it may grow by the 48 canvases plus 5%);
-10. with ``--profile``: one more run of the slice (24 frames) under
+11. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
@@ -101,9 +119,11 @@ The frames are made here from a fixed seed with numpy/scipy: a green
 pitch texture with white lines, panned 1-2 px per frame, whose line
 intersections are known tracking points.
 
-Output: the card's name and power limit, per-stage milliseconds and
-frames per second, one ``{"kernels": [...]}`` JSON line, and as the last
-line ``{"ok": true, "device": {...}}``.
+Output: per-stage milliseconds and frames per second, a ``decoders:``
+line (which of NVDEC's and NVENC's libraries, ``ffmpeg``,
+``torchvision.io``, ``torchcodec`` and PyAV this machine has; information
+only), one ``{"kernels": [...]}`` JSON line, the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -156,6 +176,18 @@ REF_BOUNDARY_ATOL = 1e-2
 REF_TRUTH_PX = 6.0
 #: frames of the profiled run (--profile)
 PROFILE_FRAMES = 24
+#: the JV kernel's main-path size: DEFAULT_CONFIG's 64 track slots + 128
+#: detection slots, the extended square matrix of masked_assignment
+LAP_N = 192
+#: a size whose cost matrix exceeds a block's shared memory (the global path)
+LAP_N_GLOBAL = 300
+#: tracking-like matrices of the exact phase, and the batched launch's B
+LAP_PAIRS = 4
+#: the kernel's optimum against scipy's and the host JV's, relative
+LAP_RTOL = 1e-5
+#: track and detection slots of the exact solver's oracle clip (n = 56: the
+#: CPU side's plain version takes ~10k Python steps a solve at n = 192)
+EXACT_REF_SLOTS = (24, 32)
 #: the multi-clip phase: frame pairs of the clip-batched launch, the
 #: flattened path's splits of make_frames(96) (the JAX bench's two 48-frame
 #: clips, and a ragged pair), the clip-batched path's clip lengths
@@ -279,7 +311,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def phase_build():
     from eagle_tpu_torch import native
-    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.ops import assignment, optical_flow
 
     t0 = time.perf_counter()
     errors = []
@@ -292,7 +324,9 @@ def phase_build():
 
     threads = [
         threading.Thread(target=run, args=(native._load_prescale,)),
+        threading.Thread(target=run, args=(native._load_lapjv,)),
         threading.Thread(target=run, args=(lambda: optical_flow.build(verbose=True),)),
+        threading.Thread(target=run, args=(lambda: assignment.build(verbose=True),)),
     ]
     for t in threads:
         t.start()
@@ -368,11 +402,12 @@ def flow_input(frames, pts):
 TRACE_ATTEMPTS = 3
 
 
-def traced_flow(of, call, reps: int) -> dict:
+def traced_flow(of, call, reps: int, kernel: str = "lk_flow") -> dict:
     """``reps`` calls of ``call()`` under ``torch.profiler``: the device
     operations in the trace (kernels, copies and sets), the durations (us)
-    of the flow kernels among them (every kernel named ``lk_flow*``), and
-    the launches the wrappers counted meanwhile.  On the H100 the profiler
+    of the flow kernels among them (every kernel whose name holds
+    ``kernel``), and the launches the wrapper module ``of`` counted
+    meanwhile (``lap_jv``: the assignment module and its kernel).  On the H100 the profiler
     has been seen to miss one launch of 20, and once to trace no device
     activity at all in a session: a trace that holds fewer flow kernels
     than were launched is taken again, up to TRACE_ATTEMPTS sessions, and
@@ -389,7 +424,7 @@ def traced_flow(of, call, reps: int) -> dict:
             torch.cuda.synchronize()
         launched = of.launches - launches0
         ops = [e for e in trace_events(prof) if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        flow = [e["dur"] for e in ops if e["cat"] == "kernel" and "lk_flow" in e["name"]]
+        flow = [e["dur"] for e in ops if e["cat"] == "kernel" and kernel in e["name"]]
         if best is None or len(flow) > len(best["flow"]):
             best = {"ops": ops, "flow": flow, "launched": launched}
         if len(flow) >= launched:
@@ -1061,6 +1096,335 @@ def phase_tracker(frames, pts, slice_model):
     n57, n240, model = tracker_slice(frames, slice_model)
     fields.update(tracker_launches_k57=n57, tracker_launches_k240=n240)
     return fields, model
+
+
+# ---------------------------------------------------------------------------
+# the exact assignment solver: the JV kernel behind TrackerConfig.assignment="exact"
+# ---------------------------------------------------------------------------
+
+
+def exact_config(**tracker):
+    """DEFAULT_CONFIG with ``assignment="exact"`` (and any other tracker
+    fields given)."""
+    import dataclasses
+
+    from eagle_tpu_torch import DEFAULT_CONFIG
+
+    return DEFAULT_CONFIG.replace(
+        tracker=dataclasses.replace(DEFAULT_CONFIG.tracker, assignment="exact", **tracker)
+    )
+
+
+def lap_inputs(model, frames) -> dict:
+    """The JV kernel's inputs on the card, name -> (B, n, n) float32:
+    ``tracking``: LAP_PAIRS extended matrices (``extended_cost``) of the
+    tracker's first stage at the main path's n = 192, made from the slice
+    model's detections on the slice's own frames: the 64 track slots hold
+    frame t's first 64 detection slots (the predicted boxes of tracks
+    that stood there), the 128 columns frame t + 1's, 1 - IoU costs, rows
+    and columns valid at the high threshold, gate ``match_thresh``;
+    ``tracking_300``: the same at n = LAP_N_GLOBAL (100 slots of frame t
+    against frame t + 1's 128 and frame t + 2's first 72), too large for
+    the block's shared memory; ``random`` and ``random_300``: uniform
+    costs at both sizes."""
+    import torch
+
+    from eagle_tpu_torch.ops.assignment import extended_cost
+    from eagle_tpu_torch.ops.nms import box_iou_matrix
+
+    tcfg = model.config.tracker
+    starts = list(range(0, len(frames) - 2, (len(frames) - 2) // LAP_PAIRS))[:LAP_PAIRS]
+    geom = model._geometry(FRAME_HW)
+    with torch.no_grad():
+        dets = {t: model.run_detector(model.upload(frames[t : t + 3], geom), geom, FRAME_HW) for t in starts}
+
+    def extended(tracks, cols):
+        rows_ok = (tracks[:, 6] > 0.5) & (tracks[:, 4] > tcfg.track_high_thresh)
+        cols_ok = (cols[:, 6] > 0.5) & (cols[:, 4] > tcfg.track_high_thresh)
+        cost = (1.0 - box_iou_matrix(tracks[:, :4], cols[:, :4])).contiguous()
+        return extended_cost(cost, rows_ok, cols_ok, tcfg.match_thresh)[0]
+
+    t_slots, g_rows = tcfg.max_tracks, LAP_N_GLOBAL // 3
+    d0 = dets[starts[0]]
+    rng = np.random.default_rng(SEED + 3)
+    dev = torch.device("cuda")
+    return {
+        "tracking": torch.stack([extended(dets[t][0, :t_slots], dets[t][1]) for t in starts]),
+        "tracking_300": extended(d0[0, :g_rows], torch.cat([d0[1], d0[2, : LAP_N_GLOBAL - g_rows - d0.shape[1]]]))[None],
+        "random": torch.from_numpy(rng.uniform(0, 1, (1, LAP_N, LAP_N)).astype(np.float32)).to(dev),
+        "random_300": torch.from_numpy(rng.uniform(0, 1, (1, LAP_N_GLOBAL, LAP_N_GLOBAL)).astype(np.float32)).to(dev),
+    }
+
+
+def lap_against_plain(costs) -> tuple[list[int], float]:
+    """One launch of the JV kernel over ``costs`` (B, n, n) against
+    ``solve_lap_plain`` on a copy moved to the CPU, matrix by matrix: fails
+    unless it launched once on the path its size asks for, the indices are
+    bit-equal, and each assignment's float64 total equals scipy's
+    ``linear_sum_assignment`` optimum and the host JV's (``native.lapjv``)
+    within LAP_RTOL.  Returns (the plain version's augmenting steps of
+    each matrix, the plain version's host ms over the B matrices)."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from eagle_tpu_torch import native
+    from eagle_tpu_torch.ops import assignment as lap
+
+    b, n, _ = costs.shape
+    path = lap.kernel_path(n)
+    before, on_path = lap.launches, lap.launches_by_path[path]
+    got = lap.solve_lap(costs if b > 1 else costs[0]).reshape(b, n)
+    torch.cuda.synchronize()
+    if lap.launches != before + 1 or lap.launches_by_path[path] != on_path + 1:
+        fail(f"solve_lap on a CUDA ({b}, {n}, {n}) tensor did not launch the kernel once on its {path} path")
+    got = got.cpu().numpy()
+    steps, plain_s = [], 0.0
+    for k in range(b):
+        c = costs[k].cpu()
+        t0 = time.perf_counter()
+        want, st = lap.jv_plain(c)
+        plain_s += time.perf_counter() - t0
+        steps.append(st)
+        if not np.array_equal(got[k], want.numpy()):
+            fail(f"the lap_jv kernel ({path} path, n = {n}) differs from the plain version on matrix {k} at rows "
+                 f"{np.flatnonzero(got[k] != want.numpy())[:10].tolist()}")
+        c64 = c.double().numpy()
+        total = c64[np.arange(n), got[k]].sum()
+        ri, ci = linear_sum_assignment(c64)
+        for who, opt in (("scipy", c64[ri, ci].sum()), ("native.lapjv", native.lapjv(c64)[1])):
+            if not abs(total - opt) <= LAP_RTOL * abs(opt) + 1e-9:
+                fail(f"the lap_jv kernel's total {total} at n = {n} is not {who}'s optimum {opt}")
+    return steps, plain_s * 1e3
+
+
+def lap_kernel_ms(costs, reps: int = 20) -> tuple[float, str]:
+    """Device time of one JV launch over ``costs`` from the profiler's
+    trace over ``reps`` calls (:func:`traced_flow`), or by CUDA events
+    where no session traced one; fails unless each call launched the
+    kernel once and ran no other device operation."""
+    from eagle_tpu_torch.ops import assignment as lap
+
+    def call():
+        return lap.solve_lap(costs)
+
+    tr = traced_flow(lap, call, reps, kernel="lap_jv")
+    if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > reps:
+        fail(f"{reps} solve_lap calls launched the kernel {tr['launched']} times and traced "
+             f"{len(tr['ops']) - len(tr['flow'])} other device operations")
+    if tr["flow"]:
+        return sum(tr["flow"]) / len(tr["flow"]) / 1e3, f"profiler, {len(tr['flow'])} of {reps} traced"
+    return cuda_ms(call, reps=reps), f"CUDA events (no lap_jv kernel traced in {tr['sessions']} sessions)"
+
+
+def lap_bound(b: int, n: int, steps: int) -> tuple[float, float, float, str]:
+    """(bytes ms, operations ms, bound ms, what bounds it) of a JV solve of
+    B (n, n) matrices whose augmenting steps number ``steps`` in all: the
+    costs read once and the row -> column indices written once; 5 float32
+    instructions a column a step (two subtractions, the strict compare, the
+    argmin's compare and one dual update)."""
+    nbytes = b * (n * n * 4 + n * 4)
+    ops = 5 * (n + 1) * steps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
+    return t_bytes, t_ops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def exact_kernel(model, frames) -> dict:
+    """(a) The JV kernel on tracking-like and random matrices at n = 192
+    (the shared-memory path) and n = LAP_N_GLOBAL (the global path), and as
+    one launch over LAP_PAIRS matrices, against the plain version, scipy and
+    the host JV (:func:`lap_against_plain`), with the batched launch equal
+    to single launches; device ms a launch, steps, bound, the plain
+    version's and scipy's host ms.  Returns the lap_jv entry."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from eagle_tpu_torch.ops import assignment as lap
+
+    counts0 = lap.launches, dict(lap.launches_by_path)
+    inputs = lap_inputs(model, frames)
+    if lap.kernel_path(LAP_N) != "shared" or lap.kernel_path(LAP_N_GLOBAL) != "global":
+        fail(f"lap_jv paths: n = {LAP_N} takes {lap.kernel_path(LAP_N)}, n = {LAP_N_GLOBAL} "
+             f"{lap.kernel_path(LAP_N_GLOBAL)}; expected shared and global")
+    entry = {}
+    for name, costs in inputs.items():
+        b, n, _ = costs.shape
+        cases = [(name, costs[:1])] + ([(f"{name}_batch", costs)] if b > 1 else [])
+        for case, c in cases:
+            steps, plain_ms = lap_against_plain(c)
+            ms, how = lap_kernel_ms(c if len(c) > 1 else c[0])
+            t_bytes, t_ops, bound, by = lap_bound(len(c), n, sum(steps))
+            host = []
+            for k in range(len(c)):
+                c64 = c[k].double().cpu().numpy()
+                t0 = time.perf_counter()
+                linear_sum_assignment(c64)
+                host.append(time.perf_counter() - t0)
+            scipy_ms = sum(host) * 1e3
+            print(f"exact kernel lap_jv {case}: B={len(c)} n={n} ({lap.kernel_path(n)} path) == plain bit for bit, "
+                  f"total == scipy and native.lapjv within {LAP_RTOL}; {ms:.4f} ms device time a launch ({how}); "
+                  f"{sum(steps)} augmenting steps ({steps}); plain {plain_ms:.3f} ms (CPU), scipy "
+                  f"linear_sum_assignment {scipy_ms:.3f} ms (host, float64); needs {len(c) * (n * n + n) * 4} B = "
+                  f"{t_bytes * 1e3:.4f} us and {5 * (n + 1) * sum(steps)} f32 instructions = {t_ops * 1e3:.4f} us "
+                  f"-> bound {bound * 1e3:.4f} us by {by}, launch {ms / bound:.0f}x over it")
+            entry[case] = {"n": n, "b": len(c), "ms": ms, "steps": sum(steps), "plain_ms": plain_ms,
+                           "scipy_host_ms": scipy_ms, "bound_ms": bound, "bound_by": by}
+        if b > 1:
+            singles = torch.stack([lap.solve_lap(costs[k]) for k in range(b)])
+            if not torch.equal(lap.solve_lap(costs), singles):
+                fail(f"the batched lap_jv launch over {b} matrices differs from {b} single launches")
+    lap.launches, lap.launches_by_path = counts0[0], counts0[1]  # comparison launches are not main-path launches
+    main = entry["tracking"]
+    return {
+        "name": "lap_jv",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/lap_jv.cu",
+        "replaces": "eagle_tpu/ops/assignment.py:30 (solve_lap, XLA while_loop)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "host_library": "scipy.optimize.linear_sum_assignment",
+        "host_library_ms": main["scipy_host_ms"],
+        "n": LAP_N,
+        "steps": main["steps"],
+        "cases": {k: v for k, v in entry.items() if k != "tracking"},
+    }
+
+
+def exact_reference(frames, pts) -> None:
+    """(b) The 12-frame oracle clip with ``assignment="exact"``, card ==
+    the port's CPU path (REF_* tolerances), the card's JV launches 3 a
+    temporal step.  EXACT_REF_SLOTS keep the CPU side's plain version
+    short (n = 56)."""
+    import torch
+
+    from eagle_tpu_torch.ops import assignment as lap
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    clip = frames[:REF_FRAMES]
+    t_slots, d_slots = EXACT_REF_SLOTS
+    cfg = exact_config(max_tracks=t_slots)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        kp_fn, det_fn, _ = oracle_models(clip, pts)
+        model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=lambda b, f=det_fn: tuple(
+            x[:, :d_slots] for x in f(b)), device=dev)
+        launches0 = lap.launches
+        res[dev] = model.get_coordinates(clip, FPS, num_keypoint_detection=6)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched, stepped = lap.launches - launches0, model.frames_stepped
+    bad = coords_mismatch(res["cuda"], res["cpu"])
+    if bad:
+        fail(f"the exact solver's oracle clip on the card differs from its plain CPU path: {bad}")
+    n_players = min(len(fr["Coordinates"].get("Player", {})) for fr in res["cuda"].values())
+    print(f"exact reference: {len(clip)} frames, {t_slots} track and {d_slots} detection slots (n = "
+          f"{t_slots + d_slots}), card == plain CPU path; {launched} lap_jv launches for {stepped} temporal steps; "
+          f">= {n_players} players tracked per frame")
+    if launched != 3 * stepped or stepped < len(clip) or n_players != 6:
+        fail("the exact solver's oracle clip did not solve 3 assignments a step on the card or lost players")
+
+
+def exact_slice(frames, slice_model, slice_res: dict) -> int:
+    """(c) The full-width slice with ``assignment="exact"`` on the slice
+    model's weights: fps, stage ms, JV launches (3 a temporal step, each on
+    the shared path; no auction round), then the slice with each solver
+    under the profiler: the temporal step's blocking calls, idle share and
+    the JV kernels' device time; the share of frames whose track ids
+    differ from the auction slice's (information).  Returns the JV launches
+    of the timed run."""
+    import torch
+
+    from eagle_tpu_torch.ops import assignment as lap
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
+
+    model = CoordinateModel(config=exact_config(), seed=SEED, device="cuda")
+    model.keypoint_model.load_state_dict(slice_model.keypoint_model.state_dict())
+    model.detector_model.load_state_dict(slice_model.detector_model.state_dict())
+    model.get_coordinates(frames[:16], FPS, num_keypoint_detection=3)  # warm-up
+    torch.cuda.synchronize()
+
+    timer = StageTimer(model.device, sync=True)
+    lap.launches, lap.launches_by_path = 0, {"shared": 0, "global": 0}
+    of.launches, lap.rounds = 0, 0
+    stepped0 = model.frames_stepped
+    t0 = time.perf_counter()
+    res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shared, rounds, stepped = lap.launches, lap.launches_by_path["shared"], lap.rounds, \
+        model.frames_stepped - stepped0
+    if sorted(res) != list(range(len(frames))) or any(
+        set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
+    ):
+        fail("the exact solver's slice did not return one entry per frame with the four keys")
+    if launches != 3 * stepped or stepped < len(frames) or shared != launches or rounds:
+        fail(f"the exact solver's slice: {launches} lap_jv launches ({shared} on the shared path) for {stepped} "
+             f"temporal steps, {rounds} auction rounds; expected 3 a step, all shared, no auction")
+    stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
+    print(f"exact slice: {len(frames)} frames (DEFAULT_CONFIG, assignment='exact', n = {LAP_N}) in {wall:.3f} s = "
+          f"{len(frames) / wall:.2f} fps; stage ms {json.dumps(stages)}; lap_jv launches {launches} for {stepped} "
+          f"temporal steps, auction rounds {rounds}; lk_flow launches {of.launches}")
+
+    profiled = {}
+    for name, m in (("exact", model), ("auction", slice_model)):
+        lap.rounds = 0
+        st, by_kernel = profile_stages(m, frames)
+        jv = [v for k, v in by_kernel.items() if "lap_jv" in k]
+        profiled[name] = (st["temporal"], lap.rounds, sum(ms for _, ms in jv), sum(c for c, _ in jv))
+    for name, (tmp, rounds, jv_ms, jv_n) in profiled.items():
+        print(f"exact slice, profiled ({name} solver, {len(frames)} frames): temporal {tmp['wall_ms']:.3f} ms, "
+              f"{tmp['blocking_calls']} blocking calls, host blocked {tmp['host_blocked_ms']:.3f} ms, device idle "
+              f"{tmp['device_idle_share']:.3f}; auction rounds {rounds}; lap_jv {jv_n} kernels, {jv_ms:.3f} ms of "
+              f"device time")
+    differ = sum(
+        {c: sorted(o) for c, o in res[i]["Coordinates"].items()}
+        != {c: sorted(o) for c, o in slice_res[i]["Coordinates"].items()}
+        for i in res
+    )
+    print(f"exact slice: track ids differ from the auction slice's in {differ} of {len(res)} frames "
+          f"({differ / len(res):.3f}; information, not a check)")
+    return launches
+
+
+def phase_exact(frames, pts, slice_model, slice_res: dict) -> dict:
+    """The exact assignment solver on the card: (a) the JV kernel, (b) the
+    oracle clip, (c) the full-width slice.  Returns the lap_jv entry."""
+    t0 = time.perf_counter()
+    entry = exact_kernel(slice_model, frames)
+    exact_reference(frames, pts)
+    entry["launches"] = exact_slice(frames, slice_model, slice_res)
+    print(f"exact: phase wall {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
+def decoder_probe() -> str:
+    """Which video decoders and encoders this machine has, without OpenCV
+    (information, fails nothing): NVDEC's and NVENC's driver libraries, an
+    ``ffmpeg`` binary, and the Python modules ``torchvision.io``,
+    ``torchcodec`` and ``av`` (PyAV)."""
+    import ctypes
+    import importlib.util
+    import shutil
+
+    found = {}
+    for lib in ("libnvcuvid.so.1", "libnvidia-encode.so.1"):
+        try:
+            ctypes.CDLL(lib)
+            found[lib] = True
+        except OSError:
+            found[lib] = False
+    found["ffmpeg"] = shutil.which("ffmpeg")
+    for mod in ("torchvision.io", "torchcodec", "av"):
+        try:
+            found[mod] = importlib.util.find_spec(mod) is not None
+        except ImportError:  # the parent package is missing
+            found[mod] = False
+    return "decoders: " + json.dumps(found)
 
 
 def make_match(frames, seed: int = SEED):
@@ -1757,12 +2121,12 @@ def trace_events(prof) -> list[dict]:
     return events
 
 
-def phase_profile(model, frames, out_path: str) -> None:
-    """One more run of the slice under ``torch.profiler``: per stage, the
-    wall time, the device's busy time (the union of the kernels and copies
-    that ran inside the stage's ranges) and idle share, and the host's time
-    blocked in synchronising calls; the kernels that take the most device
-    time.  Writes ``out_path`` (JSON) and prints one summary line."""
+def profile_stages(model, frames) -> tuple[dict, dict]:
+    """One run of the model's ``get_coordinates`` under ``torch.profiler``:
+    per stage, the wall time, the device's busy time (the union of the
+    kernels and copies that ran inside the stage's ranges) and idle share,
+    and the host's time blocked in synchronising calls and their count;
+    and every device operation's name -> (count, ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1803,6 +2167,14 @@ def phase_profile(model, frames, out_path: str) -> None:
     for (a, b), name in device:
         n, ms = by_kernel.get(name, (0, 0.0))
         by_kernel[name] = (n + 1, ms + (b - a) / 1e3)
+    return stages, by_kernel
+
+
+def phase_profile(model, frames, out_path: str) -> None:
+    """One more run of the slice under ``torch.profiler``
+    (:func:`profile_stages`).  Writes ``out_path`` (JSON) and prints one
+    summary line."""
+    stages, by_kernel = profile_stages(model, frames)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
     summary = {
         "frames": len(frames),
@@ -1850,6 +2222,7 @@ def main() -> int:
     flow["launches"], model, slice_res = phase_slice(frames)
     tracker_fields, tracker = phase_tracker(frames, pts, model)
     flow.update(tracker_fields)
+    lap_entry = phase_exact(frames, pts, model, slice_res)
     phase_process(frames, pts)
     flow.update(phase_stream(frames, pts, model, slice_res))
     clips_entry = phase_multiclip(frames, pts, model)
@@ -1858,7 +2231,8 @@ def main() -> int:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
     print(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [flow, clips_entry]}))
+    print(decoder_probe())
+    print(json.dumps({"kernels": [flow, clips_entry, lap_entry]}))
     print(card)
     print(json.dumps({
         "ok": True,

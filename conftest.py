@@ -3,7 +3,7 @@ start.
 
 Both packages build their host C++ at first use: the JAX package's
 ``eagle_tpu/native/{_lapjv,_prescale}.so`` next to its sources, the
-port's ``build/eagle_tpu_torch/libprescale.so`` under a file lock.  The
+port's ``build/eagle_tpu_torch/{libprescale,liblapjv}.so`` under a file lock.  The
 JAX package's build writes the library in place, so under pytest-xdist a
 worker that loads it while another worker is still writing it gets a
 truncated file and skips the native tests.  Building here, in the
@@ -31,6 +31,7 @@ def _build_native() -> None:
     from eagle_tpu_torch import native
 
     native._load_prescale()
+    native._load_lapjv()
 
 
 def pytest_configure(config) -> None:

@@ -1,14 +1,17 @@
-"""Host-side C++ (``prescale.cpp``), built with ``g++`` at first use and
-bound with ``ctypes``: the BGR -> packed I420 conversion, the letterboxes
-onto the working canvas (4:2:0 planes or BGR, any geometry), and the
-team-vote crop resize.
+"""Host-side C++, built with ``g++`` at first use and bound with
+``ctypes``: ``prescale.cpp`` (the BGR -> packed I420 conversion, the
+letterboxes onto the working canvas (4:2:0 planes or BGR, any geometry),
+and the team-vote crop resize) and ``lapjv.cpp`` (the float64
+Jonker-Volgenant solver, :func:`lapjv`, a copy of the JAX package's
+``eagle_tpu/native/lapjv.cpp``: the optimum oracle of the card's float32
+solver and an offline solver).
 
 ``prescale.cpp`` started as a copy of the JAX package's ``eagle_tpu/
 native/prescale.cpp`` (byte-identical clones of cv2's BGR->I420
 conversion and INTER_LINEAR plane resize) and adds a general
 ``cv2.resize`` INTER_LINEAR clone (any scale, 1 or 3 channels) behind the
 team-vote crops and the letterboxes outside the fused kernel's envelope.  The shared
-library is built into ``build/eagle_tpu_torch/`` at the repository root
+libraries are built into ``build/eagle_tpu_torch/`` at the repository root
 (git-ignored), never next to the sources.  Builds hold a file lock, so
 concurrent processes build a library once and never load a half-written
 one.  There is no fallback: a missing toolchain raises.
@@ -30,12 +33,16 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "eagle_tpu_torch")
 _PRESCALE_SRC = os.path.join(_DIR, "prescale.cpp")
 _PRESCALE_LIB = os.path.join(BUILD_DIR, "libprescale.so")
+_LAPJV_SRC = os.path.join(_DIR, "lapjv.cpp")
+_LAPJV_LIB = os.path.join(BUILD_DIR, "liblapjv.so")
 
 _lock = threading.Lock()
 _prescale_lib = None
+_lapjv_lib = None
 
 _u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 @contextlib.contextmanager
@@ -97,6 +104,69 @@ def _load_prescale():
         ]
         _prescale_lib = lib
         return lib
+
+
+def _load_lapjv():
+    global _lapjv_lib
+    with _lock:
+        if _lapjv_lib is not None:
+            return _lapjv_lib
+        build_library(
+            _LAPJV_LIB,
+            _LAPJV_SRC,
+            lambda out: ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _LAPJV_SRC, "-o", out],
+        )
+        lib = ctypes.CDLL(_LAPJV_LIB)
+        lib.lapjv_solve.restype = ctypes.c_double
+        lib.lapjv_solve.argtypes = [ctypes.c_int32, _f64, _i32]
+        lib.lapjv_solve_batch.restype = None
+        lib.lapjv_solve_batch.argtypes = [ctypes.c_int32, ctypes.c_int32, _f64, _i32, _f64]
+        _lapjv_lib = lib
+        return lib
+
+
+def lapjv_available() -> bool:
+    """Whether the host JV solver builds and loads here (``g++``)."""
+    try:
+        _load_lapjv()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def _host_f64(costs) -> np.ndarray:
+    """A contiguous float64 host copy of an array or tensor."""
+    if hasattr(costs, "detach"):
+        costs = costs.detach().cpu().numpy()
+    return np.ascontiguousarray(costs, dtype=np.float64)
+
+
+def lapjv(cost) -> tuple[np.ndarray, float]:
+    """Minimum-cost perfect matching of a square (n, n) matrix (array or
+    tensor) in float64 on the host: (row_to_col (n,) int32, total cost).
+    Raises ``RuntimeError`` when the library does not build."""
+    lib = _load_lapjv()
+    cost = _host_f64(cost)
+    n = cost.shape[0]
+    if cost.shape != (n, n):
+        raise ValueError(f"lapjv takes a square matrix, got {cost.shape}")
+    out = np.empty(n, dtype=np.int32)
+    total = lib.lapjv_solve(n, cost, out)
+    return out, float(total)
+
+
+def lapjv_batch(costs) -> tuple[np.ndarray, np.ndarray]:
+    """m independent square problems: (m, n, n) -> (row_to_col (m, n)
+    int32, totals (m,) float64)."""
+    lib = _load_lapjv()
+    costs = _host_f64(costs)
+    if costs.ndim != 3 or costs.shape[1] != costs.shape[2]:
+        raise ValueError(f"lapjv_batch takes (m, n, n) matrices, got {costs.shape}")
+    m, n, _ = costs.shape
+    out = np.empty((m, n), dtype=np.int32)
+    totals = np.empty(m, dtype=np.float64)
+    lib.lapjv_solve_batch(m, n, costs, out, totals)
+    return out, totals
 
 
 def _default_threads() -> int:

@@ -1,17 +1,34 @@
-"""Gated linear assignment by a synchronous (Jacobi) auction, the
-tracker's default solver (PyTorch counterpart of
-``eagle_tpu/ops/assignment.py::{auction_assignment, masked_auction}``).
+"""Gated linear assignment, the tracker's two solvers (PyTorch
+counterpart of ``eagle_tpu/ops/assignment.py``).
 
-Every round is one dense pass over the (R, C) matrix.  Ties resolve as in
-the JAX package: a row's best and second-best columns are its first and
-second maxima by lower index (``jax.lax.top_k``), and a column takes the
-first highest bid (``argmax``).  The loop stops once no row is bidding,
-which is bit-identical to running every round.
+- The synchronous (Jacobi) auction, the default
+  (:func:`auction_assignment`, :func:`masked_auction`).  Every round is one
+  dense pass over the (R, C) matrix.  Ties resolve as in the JAX package: a
+  row's best and second-best columns are its first and second maxima by
+  lower index (``jax.lax.top_k``), and a column takes the first highest bid
+  (``argmax``).  The loop stops once no row is bidding, which is
+  bit-identical to running every round.
+- The exact Jonker-Volgenant solver behind ``TrackerConfig.assignment=
+  "exact"`` (:func:`solve_lap`, :func:`masked_assignment`, lapjv's
+  cost-limit objective).  On CUDA tensors a solve is one launch of the
+  hand-written kernel ``csrc/lap_jv.cu`` (one block a matrix, the whole
+  solve inside it, no host sync); on CPU tensors it is
+  :func:`solve_lap_plain`, a step-by-step transcription of the JAX
+  ``solve_lap``.  Both give indices bit-equal to the JAX solver's.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from eagle_tpu_torch.native import build_library
+from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
 
 #: auction rounds run; each ends in one host sync, the loop's exit test
 rounds = 0
@@ -91,5 +108,236 @@ def masked_auction(
     match = auction_assignment(
         cost, feas, iterations=iterations, unmatched_cost=gate, max_cardinality=False
     )
+    matched_col = (match[:, None] == torch.arange(c, device=cost.device)[None, :]).any(0)
+    return match, matched_col
+
+
+# ---------------------------------------------------------------------------
+# the exact solver: Jonker-Volgenant shortest augmenting paths
+# ---------------------------------------------------------------------------
+
+#: infeasible-pair cost for direct :func:`solve_lap` use (the JAX package's:
+#: small enough that float32 dual updates keep ~1e-3 granularity)
+BIG = 1e4
+
+_CU_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "lap_jv.cu")
+_CU_LIB = os.path.join(BUILD_DIR, "liblap_jv.so")
+_build_lock = threading.Lock()
+_lib = None
+#: launches of the JV kernel (one per :func:`solve_lap` call on a CUDA tensor)
+launches = 0
+#: the same launches by the kernel's path: the cost matrix staged in shared
+#: memory, or read from global memory (a matrix too large for the block)
+launches_by_path = {"shared": 0, "global": 0}
+
+
+def jv_plain(cost: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The JV solve of one (n, n) float32 matrix as the JAX ``solve_lap``
+    computes it, step by step: (row_to_col (n,) int32, the augmenting steps
+    taken).  The 1-indexed layout with a sentinel column 0; ``minv`` starts
+    at inf with ``minv[0] = -inf``; ``cur = (a[i0] - u[i0]) - v``; a column
+    improves on a strict ``cur < minv``; ``j1`` is the first minimum of
+    ``minv`` over the unused columns; then the dual updates and the
+    backtrack.  Raises ``ValueError`` where a step finds no finite unused
+    column (a non-finite cost; the JAX solver loops forever there)."""
+    n = cost.shape[0]
+    a = F.pad(cost, (1, 0, 1, 0))  # (n+1, n+1), row and column 0 unused
+    dev = cost.device
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    u = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+    v = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+    way = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    # column -> row, as a list for the loop's scalar reads and as a tensor
+    # for the dual update's scatter (p changes only in the backtrack)
+    p = [0] * (n + 1)
+    p_t = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    steps = 0
+    for i in range(1, n + 1):
+        p[0] = i
+        p_t[0] = i
+        minv = torch.full((n + 1,), float("inf"), dtype=torch.float32, device=dev)
+        minv[0] = -float("inf")
+        free = torch.ones(n + 1, dtype=torch.bool, device=dev)  # ~used
+        j0 = 0
+        while True:
+            steps += 1
+            free[j0] = False
+            i0 = p[j0]
+            cur = (a[i0] - u[i0]) - v
+            better = (cur < minv) & free
+            minv = torch.where(better, cur, minv)
+            way = torch.where(better, j0, way)
+            masked = torch.where(free, minv, inf)
+            j1 = int(torch.argmin(masked))  # the first minimum
+            delta = masked[j1]
+            if not float(delta) < float("inf"):
+                raise ValueError("solve_lap needs finite costs: a step found no finite unused column")
+            # u[p[j]] += delta for used j (distinct rows), + 0.0 elsewhere
+            u.index_add_(0, p_t, torch.where(free, zero, delta))
+            v = torch.where(free, v, v - delta)
+            minv = torch.where(free, minv - delta, minv)
+            j0 = j1
+            if p[j0] == 0:
+                break
+        while j0 != 0:  # the augmenting path
+            j1 = int(way[j0])
+            p[j0] = p[j1]
+            j0 = j1
+        p_t = torch.tensor(p, dtype=torch.int64, device=dev)
+    row_to_col = torch.empty(n, dtype=torch.int32, device=dev)
+    row_to_col[p_t[1:] - 1] = torch.arange(n, dtype=torch.int32, device=dev)
+    return row_to_col, steps
+
+
+def solve_lap_plain(cost: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: :func:`jv_plain` on each (n, n) matrix of
+    an (n, n) or (B, n, n) float32 tensor; row_to_col (n,) or (B, n)
+    int32."""
+    if cost.dim() == 2:
+        return jv_plain(cost)[0]
+    out = torch.empty(cost.shape[:-1], dtype=torch.int32, device=cost.device)
+    for b in range(cost.shape[0]):
+        out[b] = jv_plain(cost[b])[0]
+    return out
+
+
+def _check_lap(cost: torch.Tensor) -> None:
+    if (
+        cost.dtype != torch.float32
+        or cost.dim() not in (2, 3)
+        or cost.shape[-1] != cost.shape[-2]
+        or not cost.is_contiguous()
+    ):
+        raise ValueError(
+            f"solve_lap takes a contiguous float32 (n, n) or (B, n, n) tensor; got {cost.dtype} "
+            f"{tuple(cost.shape)} (contiguous={cost.is_contiguous()})"
+        )
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/lap_jv.cu`` for sm_90a into the build directory (when
+    missing or older than the source, under the build directory's file
+    lock) and return the library path; raises with the compiler's output
+    on failure."""
+    out = build_library(
+        _CU_LIB,
+        _CU_SRC,
+        lambda tmp: [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, _CU_SRC],
+    )
+    if verbose and out:
+        print(out)
+    return _CU_LIB
+
+
+def _load():
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.lap_jv_path.restype = ctypes.c_int
+            lib.lap_jv_path.argtypes = [ctypes.c_int]
+            lib.lap_jv_launch.restype = ctypes.c_int
+            lib.lap_jv_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int),
+            ]
+            _lib = lib
+    return _lib
+
+
+def kernel_path(n: int, device=None) -> str:
+    """The path a launch at size n takes on ``device`` (default: the
+    current CUDA device): "shared" when the (n, n) cost matrix and the
+    column vectors fit in a block's shared memory, else "global"."""
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        code = _load().lap_jv_path(n)
+    if code < 0:
+        raise RuntimeError(f"lap_jv kernel: cudaError {-code} reading the card's shared-memory limit")
+    return "shared" if code == 1 else "global"
+
+
+def solve_lap_cuda(cost: torch.Tensor) -> torch.Tensor:
+    """One launch of the JV kernel over a contiguous float32 (n, n) or
+    (B, n, n) CUDA tensor, on the path :func:`kernel_path` picks:
+    row_to_col (n,) or (B, n) int32, what :func:`solve_lap_plain` gives,
+    left on the card.  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the kernel does not build or launch."""
+    global launches
+    if cost.device.type != "cuda":
+        raise ValueError(f"lap_jv kernel needs a CUDA tensor, got {cost.device}")
+    _check_lap(cost)
+    n = cost.shape[-1]
+    b = cost.shape[0] if cost.dim() == 3 else 1
+    out = torch.empty(cost.shape[:-1], dtype=torch.int32, device=cost.device)
+    if b == 0 or n == 0:
+        return out
+    lib = _load()
+    taken = ctypes.c_int(0)
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        err = lib.lap_jv_launch(cost.data_ptr(), b, n, out.data_ptr(), stream, ctypes.byref(taken))
+    if err != 0:
+        raise RuntimeError(f"lap_jv kernel launch failed at B = {b}, n = {n}: cudaError {err}")
+    launches += 1
+    launches_by_path["shared" if taken.value == 1 else "global"] += 1
+    return out
+
+
+def solve_lap(cost: torch.Tensor) -> torch.Tensor:
+    """Minimum-cost perfect matching of each square matrix of a contiguous
+    float32 (n, n) or (B, n, n) tensor (use ``BIG`` for infeasible pairs;
+    the costs must be finite): row_to_col (n,) or (B, n) int32, the column
+    of each row.  One launch of the JV kernel on a CUDA tensor (raises if
+    it does not build or launch), :func:`solve_lap_plain` on a CPU tensor.
+    Never reads a device value on the host."""
+    _check_lap(cost)
+    if cost.device.type == "cpu":
+        return solve_lap_plain(cost)
+    return solve_lap_cuda(cost)
+
+
+def extended_cost(
+    cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, gate: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """lapjv's extended square matrix of a gated (R, C) float32 problem
+    (``extend_cost=True, cost_limit=gate``): (sq (R + C, R + C) float32,
+    feas (R, C) bool).  The real block holds the feasible costs (a pair is
+    feasible when its row and column are valid and it costs at most
+    ``gate``) and ``gate + 1`` elsewhere; the two opposite blocks hold
+    ``gate / 2``, the price of leaving a row or a column unmatched; the
+    corner is 0.  float32 arithmetic as the JAX package's."""
+    r, c = cost.shape
+    n = r + c
+    feas = row_valid[:, None] & col_valid[None, :] & (cost <= gate)
+    g = np.float32(gate)
+    sq = torch.full((n, n), float(g / np.float32(2.0)), dtype=torch.float32, device=cost.device)
+    sq[r:, c:] = 0.0
+    sq[:r, :c] = torch.where(feas, cost, torch.full_like(cost, float(g + np.float32(1.0))))
+    return sq, feas
+
+
+def masked_assignment(
+    cost: torch.Tensor,
+    row_valid: torch.Tensor,
+    col_valid: torch.Tensor,
+    gate: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gated rectangular assignment with lapjv's cost-limit semantics
+    (``lap.lapjv(cost, extend_cost=True, cost_limit=gate)``, the call boxmot
+    makes): the total matched cost plus ``gate / 2`` per unmatched row and
+    column is minimal, so a feasible pair is left unmatched when that is
+    globally cheaper.  Invalid rows or columns and pairs costing more than
+    ``gate`` never match.  ``cost`` (R, C) float32; returns (match (R,)
+    int64 column per row or -1, matched_col (C,) bool), computed with tensor
+    operations on the device of the inputs: one :func:`solve_lap` of the
+    :func:`extended_cost` matrix, no host sync on a CUDA device."""
+    r, c = cost.shape
+    sq, feas = extended_cost(cost, row_valid, col_valid, gate)
+    row_to_col = solve_lap(sq)[:r].long()
+    ok = row_to_col < c
+    if c:
+        ok = ok & feas.gather(1, row_to_col.clamp(0, c - 1)[:, None])[:, 0]
+    match = torch.where(ok, row_to_col, -1)
     matched_col = (match[:, None] == torch.arange(c, device=cost.device)[None, :]).any(0)
     return match, matched_col

@@ -10,7 +10,10 @@ leftovers x low-confidence detections (IoU gate 0.5), tentative tracks x
 remaining high detections (score-fused IoU gate 0.7) -- the measurement
 update, the lifecycle, spawning of new tracks into free slots (k-th free
 slot takes the k-th new detection) and duplicate suppression between
-tracked and lost tracks.
+tracked and lost tracks.  Each stage is one gated assignment by
+``TrackerConfig.assignment``'s solver, as in the JAX package: the auction
+(the default) or the exact JV solver (``"exact"``: on the card one launch of
+the ``lap_jv`` kernel a stage, with no host sync).
 
 With ``TrackerConfig.use_appearance`` and per-detection embeddings (the
 ReID role: OSNet or the HSV histogram), the first and third stages take
@@ -27,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from eagle_tpu_torch.config import TrackerConfig
-from eagle_tpu_torch.ops.assignment import masked_auction
+from eagle_tpu_torch.ops.assignment import masked_assignment, masked_auction
 from eagle_tpu_torch.ops.kalman import (
     kf_initiate,
     kf_predict,
@@ -104,8 +107,6 @@ def step(
     (x, y) / (w, h) / velocity pair of the state).
     det_embed: optional (D, E) L2-normalised appearance embeddings, used
     when ``cfg.use_appearance`` (None there behaves as False)."""
-    if cfg.assignment != "auction":
-        raise NotImplementedError("only the auction solver is ported (TrackerConfig.assignment)")
     appearance = bool(cfg.use_appearance) and det_embed is not None
     T = state.mean.shape[0]
     D = det_boxes.shape[0]
@@ -135,6 +136,7 @@ def step(
     low = det_valid & (det_conf > cfg.track_low_thresh) & (det_conf < cfg.track_high_thresh)
 
     iou_c = 1.0 - box_iou_matrix(track_boxes, det_boxes)  # (T, D)
+    solver = masked_auction if cfg.assignment == "auction" else masked_assignment
 
     # appearance distance, shared by stages 1 and 3: cosine distance / 2,
     # 1 for distant boxes or dissimilar appearance
@@ -147,17 +149,17 @@ def step(
     cost1 = _fuse_score(iou_c, det_conf) if cfg.fuse_first_associate else iou_c
     if appearance:
         cost1 = torch.minimum(cost1, emb_d)
-    m1, used_det1 = masked_auction(cost1, rows1, high, cfg.match_thresh)
+    m1, used_det1 = solver(cost1, rows1, high, cfg.match_thresh)
     # stage 2: still-tracked unmatched x low detections, raw IoU gate 0.5
     rows2 = rows1 & was_tracked & (m1 < 0)
-    m2, _ = masked_auction(iou_c, rows2, low, 0.5)
+    m2, _ = solver(iou_c, rows2, low, 0.5)
     # stage 3: tentative tracks x leftover high detections, fused gate 0.7
     rows3 = state.active & ~state.confirmed
     cols3 = high & ~used_det1
     cost3 = _fuse_score(iou_c, det_conf)
     if appearance:
         cost3 = torch.minimum(cost3, emb_d)
-    m3, used_det3 = masked_auction(cost3, rows3, cols3, 0.7)
+    m3, used_det3 = solver(cost3, rows3, cols3, 0.7)
 
     match = torch.where(m1 >= 0, m1, torch.where(m2 >= 0, m2, m3))
     matched = match >= 0

@@ -3,7 +3,11 @@ version (frames whose rows are not whole 16-byte chunks included, and the
 features GMC's 240 grid corners of a frame pair), its one launch a call,
 its input checks and its launch count; its clip-batched launch (C frame
 pairs in one launch) against C single launches and the plain version; the
-one-shot run's peak device memory against its length.
+one-shot run's peak device memory against its length; the JV assignment
+kernel (``csrc/lap_jv.cu``) against its plain version on both of its paths
+(the cost staged in shared memory, or read from global memory), its
+batched launch, its input checks, and ``masked_assignment`` on the card
+without a host sync.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -13,7 +17,7 @@ imports JAX):
 
 Without a card every test skips.  Tolerances: status bit-equal; positions
 within 1e-2 px on tracked points (the bar tests/test_pallas_flow.py sets
-between the JAX package's two flow engines)."""
+between the JAX package's two flow engines); assignments bit-equal."""
 
 import json
 
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from eagle_tpu_torch.ops import assignment as lap
 from eagle_tpu_torch.ops import optical_flow as of
 
 pytestmark = pytest.mark.cuda
@@ -350,3 +355,91 @@ def test_one_shot_peak_grows_by_the_canvases_only(dev):
 
     p48, p96 = peak(48), peak(96)
     assert p96 - p48 <= 1.05 * 48 * 544 * 960 * 3, (p48, p96)
+
+
+# ---------------------------------------------------------------------------
+# the JV assignment kernel
+# ---------------------------------------------------------------------------
+
+
+def _lap_costs(n, kind, seed=0):
+    """(n, n) float32 costs: uniform random, or the tracker's extended
+    square matrix (lapjv's cost-limit layout as ``masked_assignment``
+    builds it) of R = n // 3 track slots against C = n - R detection slots
+    holding mostly 1.0 IoU distances, a few valid rows and columns."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.uniform(0, 1, (n, n)).astype(np.float32)
+    r = n // 3
+    c = n - r
+    cost = np.ones((r, c), np.float32)
+    near = rng.uniform(size=(r, c)) < 0.1
+    cost[near] = rng.uniform(0.05, 0.95, near.sum())
+    feas = (rng.uniform(size=r) < 0.4)[:, None] & (rng.uniform(size=c) < 0.3)[None, :] & (cost <= 0.8)
+    sq = np.full((n, n), np.float32(0.8) / np.float32(2), np.float32)
+    sq[r:, c:] = 0.0
+    sq[:r, :c] = np.where(feas, cost, np.float32(0.8) + np.float32(1))
+    return sq
+
+
+@pytest.mark.parametrize("n,kind", [(57, "random"), (192, "random"), (192, "tracking"), (300, "random"),
+                                    (300, "tracking")])
+def test_lap_kernel_matches_plain(dev, n, kind):
+    cost = torch.from_numpy(_lap_costs(n, kind, seed=n))
+    path = lap.kernel_path(n, dev)
+    assert path == ("global" if n == 300 else "shared")
+    before, by_path = lap.launches, dict(lap.launches_by_path)
+    got = lap.solve_lap(cost.to(dev))
+    torch.cuda.synchronize()
+    assert lap.launches == before + 1 and lap.launches_by_path[path] == by_path[path] + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), lap.solve_lap_plain(cost).numpy())
+
+
+@pytest.mark.parametrize("n", [192, 300])
+def test_lap_batched_launch_equals_single_launches(dev, n):
+    costs = torch.from_numpy(np.stack([_lap_costs(n, kind, seed=s) for s, kind in
+                                       enumerate(["random", "tracking", "tracking", "random"])])).to(dev)
+    before = lap.launches
+    batched = lap.solve_lap(costs)
+    singles = [lap.solve_lap(costs[b]) for b in range(4)]
+    torch.cuda.synchronize()
+    assert lap.launches == before + 5
+    for b in range(4):
+        assert torch.equal(batched[b], singles[b])
+
+
+def test_lap_kernel_checks_its_inputs(dev):
+    before = lap.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        lap.solve_lap_cuda(torch.zeros(4, 4))
+    for bad in (torch.zeros(4, 4, dtype=torch.float64, device=dev), torch.zeros(4, 5, device=dev),
+                torch.zeros(8, 8, device=dev)[::2, ::2], torch.zeros(2, 2, 4, 4, device=dev)):
+        with pytest.raises(ValueError, match="solve_lap takes"):
+            lap.solve_lap(bad)
+    assert lap.launches == before
+    # a matrix with no finite perfect matching: every row -1, no hang
+    out = lap.solve_lap(torch.full((5, 5), float("inf"), device=dev))
+    torch.cuda.synchronize()
+    assert out.tolist() == [-1] * 5
+
+
+def test_masked_assignment_on_the_card_makes_no_host_sync(dev):
+    rng = np.random.default_rng(4)
+    cost = np.ones((64, 128), np.float32)
+    near = rng.uniform(size=cost.shape) < 0.1
+    cost[near] = rng.uniform(0.05, 0.95, near.sum())
+    rows, cols = rng.uniform(size=64) < 0.4, rng.uniform(size=128) < 0.3
+    args = [torch.from_numpy(a).to(dev) for a in (cost, rows, cols)]
+    lap.masked_assignment(*args, 0.8)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = lap.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        match, matched_col = lap.masked_assignment(*args, 0.8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lap.launches == before + 1
+    want_m, want_c = lap.masked_assignment(*(a.cpu() for a in args), 0.8)
+    assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
+    assert (want_m >= 0).sum() >= 5

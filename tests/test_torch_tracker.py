@@ -1,4 +1,5 @@
-"""PyTorch port, tracker: BoT-SORT steps, the auction solver and the
+"""PyTorch port, tracker: BoT-SORT steps with either solver (the auction
+and, ``assignment="exact"``, the JV solver), the auction solver and the
 Kalman filter against the JAX package on the same detection streams.
 
 Tolerances: track ids, emit masks, matched detection indices and classes
@@ -50,11 +51,15 @@ def _scene_stream(seed: int, n_frames: int = 24):
     return stream, warps
 
 
-@pytest.mark.parametrize("seed,gmc", [(0, "off"), (1, "affine"), (2, "affine")])
-def test_tracker_ids_bit_equal(seed, gmc):
+@pytest.mark.parametrize(
+    "seed,gmc,assignment",
+    [pytest.param(seed, gmc, a, id=f"{seed}-{gmc}" + ("" if a == "auction" else "-exact"))
+     for a in ("auction", "exact") for seed, gmc in [(0, "off"), (1, "affine"), (2, "affine")]],
+)
+def test_tracker_ids_bit_equal(seed, gmc, assignment):
     stream, warps = _scene_stream(seed)
-    jcfg = JTrackerConfig(max_tracks=24, gmc=gmc)
-    tcfg = TrackerConfig(max_tracks=24, gmc=gmc)
+    jcfg = JTrackerConfig(max_tracks=24, gmc=gmc, assignment=assignment)
+    tcfg = TrackerConfig(max_tracks=24, gmc=gmc, assignment=assignment)
     js = jbs.init_state(24, 1)
     jstep = jax.jit(jbs.step, static_argnames=("cfg",))
     ts = tbs.init_state(24)
@@ -141,11 +146,12 @@ def _crossing_stream(n_frames: int = 24, e: int = 16, seed: int = 0):
     return stream
 
 
-def test_tracker_with_appearance_matches_jax():
+@pytest.mark.parametrize("assignment", ["auction", "exact"])
+def test_tracker_with_appearance_matches_jax(assignment):
     stream = _crossing_stream()
-    jcfg = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16)
-    tcfg = TrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16)
-    iou_only = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=False)
+    jcfg = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16, assignment=assignment)
+    tcfg = TrackerConfig(max_tracks=24, gmc="off", use_appearance=True, embed_dim=16, assignment=assignment)
+    iou_only = JTrackerConfig(max_tracks=24, gmc="off", use_appearance=False, assignment=assignment)
     jstep = jax.jit(jbs.step, static_argnames=("cfg",))
     js, js_iou = jbs.init_state(24, 16), jbs.init_state(24, 16)
     ts = tbs.init_state(24, 16)
