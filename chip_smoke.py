@@ -58,12 +58,16 @@ Phases (any failure exits non-zero, nothing is caught):
    ``TrackerConfig.assignment="exact"``: (a) on tracking-like matrices
    (the tracker's extended matrices from the slice model's detections on
    the slice's frames) and random ones at n = 192 (the main path's size,
-   the cost staged in shared memory) and n = 300 (read from global
-   memory), and as one launch over 4 matrices: indices bit-equal to the
+   the cost staged in shared memory), n = 300 (read from global memory)
+   and, random only, n = 1025 (more than 32 columns a lane: the column
+   vectors in shared memory), and as one launch over 4 matrices: indices
+   bit-equal to the
    plain version on copies on the CPU, the batched launch to single
    launches, totals equal to scipy's ``linear_sum_assignment`` and the
    host JV's (float64) within 1e-5; device ms a launch, augmenting steps,
-   the bound, the plain version's and scipy's host ms; (b) the 12-frame
+   ns a step, the bound, the plain version's and scipy's host ms, and
+   ``-Xptxas -v``'s registers and spills of the three instantiations
+   launched (one warp a matrix, K columns a lane); (b) the 12-frame
    oracle clip with the exact solver (24 track and 32 detection slots),
    card == plain CPU path, 3 launches a temporal step; (c) the full-width
    slice with the exact solver on the slice model's weights: fps, stage
@@ -129,6 +133,8 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -181,6 +187,8 @@ PROFILE_FRAMES = 24
 LAP_N = 192
 #: a size whose cost matrix exceeds a block's shared memory (the global path)
 LAP_N_GLOBAL = 300
+#: the first size with more than 32 columns a lane (the vectors in shared memory)
+LAP_N_WIDE = 1025
 #: tracking-like matrices of the exact phase, and the batched launch's B
 LAP_PAIRS = 4
 #: the kernel's optimum against scipy's and the host JV's, relative
@@ -309,7 +317,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_build():
+def phase_build() -> str:
+    """Builds the kernels and the host libraries, all at once; prints and
+    returns the CUDA kernels' compiler output (``-Xptxas -v``; empty for a
+    library already built in this checkout)."""
     from eagle_tpu_torch import native
     from eagle_tpu_torch.ops import assignment, optical_flow
 
@@ -328,13 +339,17 @@ def phase_build():
         threading.Thread(target=run, args=(lambda: optical_flow.build(verbose=True),)),
         threading.Thread(target=run, args=(lambda: assignment.build(verbose=True),)),
     ]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):  # the verbose builds print their compiler output
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    print(log.getvalue(), end="")
     if errors:
         raise errors[0]
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    return log.getvalue()
 
 
 def lk_flow_work(origin, hw, side: int, record, levels: int = 2, window: int = 15) -> tuple[int, int, int]:
@@ -1125,8 +1140,8 @@ def lap_inputs(model, frames) -> dict:
     and columns valid at the high threshold, gate ``match_thresh``;
     ``tracking_300``: the same at n = LAP_N_GLOBAL (100 slots of frame t
     against frame t + 1's 128 and frame t + 2's first 72), too large for
-    the block's shared memory; ``random`` and ``random_300``: uniform
-    costs at both sizes."""
+    the block's shared memory; ``random``, ``random_300`` and
+    ``random_1025``: uniform costs at those sizes and at LAP_N_WIDE."""
     import torch
 
     from eagle_tpu_torch.ops.assignment import extended_cost
@@ -1153,6 +1168,7 @@ def lap_inputs(model, frames) -> dict:
         "tracking_300": extended(d0[0, :g_rows], torch.cat([d0[1], d0[2, : LAP_N_GLOBAL - g_rows - d0.shape[1]]]))[None],
         "random": torch.from_numpy(rng.uniform(0, 1, (1, LAP_N, LAP_N)).astype(np.float32)).to(dev),
         "random_300": torch.from_numpy(rng.uniform(0, 1, (1, LAP_N_GLOBAL, LAP_N_GLOBAL)).astype(np.float32)).to(dev),
+        "random_1025": torch.from_numpy(rng.uniform(0, 1, (1, LAP_N_WIDE, LAP_N_WIDE)).astype(np.float32)).to(dev),
     }
 
 
@@ -1216,6 +1232,21 @@ def lap_kernel_ms(costs, reps: int = 20) -> tuple[float, str]:
     return cuda_ms(call, reps=reps), f"CUDA events (no lap_jv kernel traced in {tr['sessions']} sessions)"
 
 
+def ptxas_lines(log: str, k: int, shared: bool) -> list[str]:
+    """The ``-Xptxas -v`` lines (stack frame and spills, registers) of the
+    JV kernel's instantiation with ``k`` columns a lane on the shared or
+    global path (k = 0: the kernel with the vectors in shared memory) in
+    the compiler's output ``log``."""
+    name = f"lap_jvILi{k}ELb{int(shared)}E" if k else "lap_jv_wide"
+    lines, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = name in line
+        elif inside and ("stack frame" in line or "registers" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return lines
+
+
 def lap_bound(b: int, n: int, steps: int) -> tuple[float, float, float, str]:
     """(bytes ms, operations ms, bound ms, what bounds it) of a JV solve of
     B (n, n) matrices whose augmenting steps number ``steps`` in all: the
@@ -1228,7 +1259,7 @@ def lap_bound(b: int, n: int, steps: int) -> tuple[float, float, float, str]:
     return t_bytes, t_ops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def exact_kernel(model, frames) -> dict:
+def exact_kernel(model, frames, build_log: str) -> dict:
     """(a) The JV kernel on tracking-like and random matrices at n = 192
     (the shared-memory path) and n = LAP_N_GLOBAL (the global path), and as
     one launch over LAP_PAIRS matrices, against the plain version, scipy and
@@ -1245,6 +1276,15 @@ def exact_kernel(model, frames) -> dict:
     if lap.kernel_path(LAP_N) != "shared" or lap.kernel_path(LAP_N_GLOBAL) != "global":
         fail(f"lap_jv paths: n = {LAP_N} takes {lap.kernel_path(LAP_N)}, n = {LAP_N_GLOBAL} "
              f"{lap.kernel_path(LAP_N_GLOBAL)}; expected shared and global")
+    if lap.kernel_columns(LAP_N_WIDE) != 0:
+        fail(f"lap_jv at n = {LAP_N_WIDE} keeps {lap.kernel_columns(LAP_N_WIDE)} columns a lane in registers")
+    variants = {}
+    for n in (LAP_N, LAP_N_GLOBAL, LAP_N_WIDE):
+        k, path = lap.kernel_columns(n), lap.kernel_path(n)
+        lines = ptxas_lines(build_log, k, path == "shared") or ["library already built: no compiler output"]
+        variants[str(n)] = {"columns_a_lane": k, "path": path, "ptxas": lines}
+        print(f"exact kernel lap_jv at n = {n}: one warp, K = {k} columns a lane, {path} path; ptxas: "
+              f"{'; '.join(lines)}")
     entry = {}
     for name, costs in inputs.items():
         b, n, _ = costs.shape
@@ -1260,14 +1300,16 @@ def exact_kernel(model, frames) -> dict:
                 linear_sum_assignment(c64)
                 host.append(time.perf_counter() - t0)
             scipy_ms = sum(host) * 1e3
+            # the B matrices run side by side: a step of the launch is one of its longest solve's
+            ns_step = ms * 1e6 / max(steps)
             print(f"exact kernel lap_jv {case}: B={len(c)} n={n} ({lap.kernel_path(n)} path) == plain bit for bit, "
                   f"total == scipy and native.lapjv within {LAP_RTOL}; {ms:.4f} ms device time a launch ({how}); "
-                  f"{sum(steps)} augmenting steps ({steps}); plain {plain_ms:.3f} ms (CPU), scipy "
+                  f"{sum(steps)} augmenting steps ({steps}), {ns_step:.1f} ns a step; plain {plain_ms:.3f} ms (CPU), scipy "
                   f"linear_sum_assignment {scipy_ms:.3f} ms (host, float64); needs {len(c) * (n * n + n) * 4} B = "
                   f"{t_bytes * 1e3:.4f} us and {5 * (n + 1) * sum(steps)} f32 instructions = {t_ops * 1e3:.4f} us "
                   f"-> bound {bound * 1e3:.4f} us by {by}, launch {ms / bound:.0f}x over it")
-            entry[case] = {"n": n, "b": len(c), "ms": ms, "steps": sum(steps), "plain_ms": plain_ms,
-                           "scipy_host_ms": scipy_ms, "bound_ms": bound, "bound_by": by}
+            entry[case] = {"n": n, "b": len(c), "ms": ms, "steps": sum(steps), "ns_per_step": ns_step,
+                           "plain_ms": plain_ms, "scipy_host_ms": scipy_ms, "bound_ms": bound, "bound_by": by}
         if b > 1:
             singles = torch.stack([lap.solve_lap(costs[k]) for k in range(b)])
             if not torch.equal(lap.solve_lap(costs), singles):
@@ -1290,6 +1332,8 @@ def exact_kernel(model, frames) -> dict:
         "host_library_ms": main["scipy_host_ms"],
         "n": LAP_N,
         "steps": main["steps"],
+        "ns_per_step": main["ns_per_step"],
+        "instantiations": variants,
         "cases": {k: v for k, v in entry.items() if k != "tracking"},
     }
 
@@ -1391,11 +1435,11 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     return launches
 
 
-def phase_exact(frames, pts, slice_model, slice_res: dict) -> dict:
+def phase_exact(frames, pts, slice_model, slice_res: dict, build_log: str) -> dict:
     """The exact assignment solver on the card: (a) the JV kernel, (b) the
     oracle clip, (c) the full-width slice.  Returns the lap_jv entry."""
     t0 = time.perf_counter()
-    entry = exact_kernel(slice_model, frames)
+    entry = exact_kernel(slice_model, frames, build_log)
     exact_reference(frames, pts)
     entry["launches"] = exact_slice(frames, slice_model, slice_res)
     print(f"exact: phase wall {time.perf_counter() - t0:.1f} s")
@@ -2215,14 +2259,14 @@ def main() -> int:
     card = card_line()
 
     t0 = time.perf_counter()
-    phase_build()
+    build_log = phase_build()
     frames, pts = make_frames(N_FRAMES)
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
     flow["launches"], model, slice_res = phase_slice(frames)
     tracker_fields, tracker = phase_tracker(frames, pts, model)
     flow.update(tracker_fields)
-    lap_entry = phase_exact(frames, pts, model, slice_res)
+    lap_entry = phase_exact(frames, pts, model, slice_res, build_log)
     phase_process(frames, pts)
     flow.update(phase_stream(frames, pts, model, slice_res))
     clips_entry = phase_multiclip(frames, pts, model)

@@ -11,7 +11,7 @@ counterpart of ``eagle_tpu/ops/assignment.py``).
 - The exact Jonker-Volgenant solver behind ``TrackerConfig.assignment=
   "exact"`` (:func:`solve_lap`, :func:`masked_assignment`, lapjv's
   cost-limit objective).  On CUDA tensors a solve is one launch of the
-  hand-written kernel ``csrc/lap_jv.cu`` (one block a matrix, the whole
+  hand-written kernel ``csrc/lap_jv.cu`` (one warp a matrix, the whole
   solve inside it, no host sync); on CPU tensors it is
   :func:`solve_lap_plain`, a step-by-step transcription of the JAX
   ``solve_lap``.  Both give indices bit-equal to the JAX solver's.
@@ -235,8 +235,9 @@ def _load():
     with _build_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.lap_jv_path.restype = ctypes.c_int
-            lib.lap_jv_path.argtypes = [ctypes.c_int]
+            for fn in (lib.lap_jv_path, lib.lap_jv_columns):
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_int]
             lib.lap_jv_launch.restype = ctypes.c_int
             lib.lap_jv_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -246,15 +247,29 @@ def _load():
     return _lib
 
 
+def _ask(fn: str, n: int, device) -> int:
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        code = getattr(_load(), fn)(n)
+    if code < 0:
+        raise RuntimeError(f"lap_jv kernel: cudaError {-code} choosing the instantiation for n = {n}")
+    return code
+
+
 def kernel_path(n: int, device=None) -> str:
     """The path a launch at size n takes on ``device`` (default: the
     current CUDA device): "shared" when the (n, n) cost matrix and the
-    column vectors fit in a block's shared memory, else "global"."""
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        code = _load().lap_jv_path(n)
-    if code < 0:
-        raise RuntimeError(f"lap_jv kernel: cudaError {-code} reading the card's shared-memory limit")
-    return "shared" if code == 1 else "global"
+    vectors kept in shared memory fit in a block's shared memory, else
+    "global"."""
+    return "shared" if _ask("lap_jv_path", n, device) == 1 else "global"
+
+
+def kernel_columns(n: int, device=None) -> int:
+    """The columns a lane keeps in registers in the kernel's instantiation
+    a launch at size n takes (its template K, at least ceil(n / 32): the
+    sentinel column 0 is kept apart), or 0 for the kernel that keeps the
+    column vectors in shared memory (more than 32 columns a lane, n >
+    1024)."""
+    return _ask("lap_jv_columns", n, device)
 
 
 def solve_lap_cuda(cost: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from eagle_tpu.ops.assignment import solve_lap as jsolve
 from eagle_tpu_torch import native
 from eagle_tpu_torch.ops import assignment
 from eagle_tpu_torch.ops.assignment import BIG, masked_assignment, solve_lap, solve_lap_plain
+from eagle_tpu_torch.utils.lap_bench import lap_costs
 
 from .torch_parity import n as np_of
 from .torch_parity import t
@@ -57,6 +58,24 @@ def test_solve_lap_plain_bit_equal_to_jax(make, n):
     want = np.asarray(jsolve(jnp.asarray(cost)))
     got = solve_lap_plain(t(cost))
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np_of(got), want)
+    assert sorted(want.tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize(
+    "kind,n,seed",
+    [("tracking", 192, 192), ("tracking", 192, 193), ("signed_zeros", 24, 24), ("signed_zeros", 56, 56)],
+)
+def test_solve_lap_plain_bit_equal_to_jax_on_the_kernels_cases(kind, n, seed):
+    """The plain version the card compares the kernel against, pinned to
+    the JAX solver at the main path's n = 192 on the tracker's extended
+    matrices (~10,000 augmenting steps of ties) and on matrices whose
+    -0.0 and +0.0 entries tie (the lower column wins)."""
+    cost = lap_costs(n, kind, seed)
+    if kind == "signed_zeros":
+        assert (np.signbit(cost) & (cost == 0)).any() and (~np.signbit(cost) & (cost == 0)).any()
+    want = np.asarray(jsolve(jnp.asarray(cost)))
+    got = solve_lap_plain(t(cost))
     np.testing.assert_array_equal(np_of(got), want)
     assert sorted(want.tolist()) == list(range(n))
 

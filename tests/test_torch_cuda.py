@@ -4,10 +4,12 @@ features GMC's 240 grid corners of a frame pair), its one launch a call,
 its input checks and its launch count; its clip-batched launch (C frame
 pairs in one launch) against C single launches and the plain version; the
 one-shot run's peak device memory against its length; the JV assignment
-kernel (``csrc/lap_jv.cu``) against its plain version on both of its paths
-(the cost staged in shared memory, or read from global memory), its
-batched launch, its input checks, and ``masked_assignment`` on the card
-without a host sync.
+kernel (``csrc/lap_jv.cu``, one warp a matrix) against its plain version
+at every boundary of its columns a lane, on both of its paths (the cost
+staged in shared memory, or read from global memory) and at their edge,
+in its shared-memory-vector instantiation (n > 1024), on matrices whose
+-0.0 and +0.0 tie, its batched launch, all-inf matrices, its input
+checks, and ``masked_assignment`` on the card without a host sync.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -27,6 +29,7 @@ import torch
 
 from eagle_tpu_torch.ops import assignment as lap
 from eagle_tpu_torch.ops import optical_flow as of
+from eagle_tpu_torch.utils.lap_bench import lap_costs
 
 pytestmark = pytest.mark.cuda
 
@@ -362,43 +365,84 @@ def test_one_shot_peak_grows_by_the_canvases_only(dev):
 # ---------------------------------------------------------------------------
 
 
-def _lap_costs(n, kind, seed=0):
-    """(n, n) float32 costs: uniform random, or the tracker's extended
-    square matrix (lapjv's cost-limit layout as ``masked_assignment``
-    builds it) of R = n // 3 track slots against C = n - R detection slots
-    holding mostly 1.0 IoU distances, a few valid rows and columns."""
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        return rng.uniform(0, 1, (n, n)).astype(np.float32)
-    r = n // 3
-    c = n - r
-    cost = np.ones((r, c), np.float32)
-    near = rng.uniform(size=(r, c)) < 0.1
-    cost[near] = rng.uniform(0.05, 0.95, near.sum())
-    feas = (rng.uniform(size=r) < 0.4)[:, None] & (rng.uniform(size=c) < 0.3)[None, :] & (cost <= 0.8)
-    sq = np.full((n, n), np.float32(0.8) / np.float32(2), np.float32)
-    sq[r:, c:] = 0.0
-    sq[:r, :c] = np.where(feas, cost, np.float32(0.8) + np.float32(1))
-    return sq
+def _lap_against_plain(dev, n, kind, seed):
+    """One launch at (n, n) on the path and instantiation the kernel picks,
+    bit-equal to the plain version; returns (path, columns a lane)."""
+    cost = torch.from_numpy(lap_costs(n, kind, seed))
+    path, cols = lap.kernel_path(n, dev), lap.kernel_columns(n, dev)
+    before, by_path = lap.launches, dict(lap.launches_by_path)
+    got = lap.solve_lap(cost.to(dev))
+    torch.cuda.synchronize()
+    launched = 1 if n else 0
+    assert lap.launches == before + launched and lap.launches_by_path[path] == by_path[path] + launched
+    assert got.dtype == torch.int32 and got.device.type == "cuda" and got.shape == (n,)
+    np.testing.assert_array_equal(got.cpu().numpy(), lap.solve_lap_plain(cost).numpy())
+    return path, cols
 
 
 @pytest.mark.parametrize("n,kind", [(57, "random"), (192, "random"), (192, "tracking"), (300, "random"),
                                     (300, "tracking")])
 def test_lap_kernel_matches_plain(dev, n, kind):
-    cost = torch.from_numpy(_lap_costs(n, kind, seed=n))
-    path = lap.kernel_path(n, dev)
+    path, cols = _lap_against_plain(dev, n, kind, seed=n)
     assert path == ("global" if n == 300 else "shared")
-    before, by_path = lap.launches, dict(lap.launches_by_path)
-    got = lap.solve_lap(cost.to(dev))
+    assert cols == {57: 2, 192: 6, 300: 10}[n]
+
+
+@pytest.mark.parametrize("kind", ["random", "tracking"])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 63, 64])
+def test_lap_kernel_at_each_boundary_of_its_columns_a_lane(dev, n, kind):
+    """n columns (and the sentinel column 0, kept apart) over 32 lanes:
+    1, 31, 32, 33, 63, 64 columns fill a lane's K registers exactly, leave
+    padding columns, or open the next k."""
+    path, cols = _lap_against_plain(dev, n, kind, seed=n + 1)
+    if n:
+        assert path == "shared" and cols >= -(-n // 32)
+
+
+def test_lap_kernel_at_the_edge_of_the_shared_path(dev):
+    """The largest n whose cost is staged in shared memory and the smallest
+    read from global memory, both as ``kernel_path`` reports them."""
+    paths = {n: lap.kernel_path(n, dev) for n in range(192, 320)}
+    largest = max(n for n, p in paths.items() if p == "shared")
+    assert largest >= 238 and all(p == "global" for n, p in paths.items() if n > largest)
+    for n, want in ((largest, "shared"), (largest + 1, "global")):
+        assert _lap_against_plain(dev, n, "tracking", seed=n)[0] == want
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [57, 192])
+def test_lap_kernel_stages_a_matrix_off_the_16_byte_grid(dev, n, offset):
+    """A matrix whose base address lies 4, 8 or 12 bytes past a 16-byte
+    boundary (a view into a buffer) is staged as an aligned one is: single
+    floats up to the boundary, 16-byte loads after it."""
+    cost = torch.from_numpy(lap_costs(n, "tracking", seed=n))
+    flat = torch.empty(n * n + offset, device=dev)
+    shifted = flat[offset:].view(n, n)
+    shifted.copy_(cost)
+    assert shifted.data_ptr() % 16 == 4 * offset and lap.kernel_path(n, dev) == "shared"
+    got = lap.solve_lap(shifted)
     torch.cuda.synchronize()
-    assert lap.launches == before + 1 and lap.launches_by_path[path] == by_path[path] + 1
-    assert got.dtype == torch.int32 and got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), lap.solve_lap_plain(cost).numpy())
 
 
-@pytest.mark.parametrize("n", [192, 300])
+@pytest.mark.parametrize("n", [24, 56])
+def test_lap_kernel_ties_signed_zeros_as_the_plain_version(dev, n):
+    _lap_against_plain(dev, n, "signed_zeros", seed=n)
+
+
+@pytest.mark.parametrize("n", [1025, 2000])
+def test_lap_kernel_with_the_column_vectors_in_shared_memory(dev, n):
+    """n > 1024: more than 32 columns a lane, the vectors in shared memory
+    (n = 1024 is the last size with its columns in registers): 33 columns
+    a lane, one more than a chunk's multiple, and 63."""
+    assert lap.kernel_columns(1024, dev) == 32
+    path, cols = _lap_against_plain(dev, n, "random", seed=5)
+    assert path == "global" and cols == 0
+
+
+@pytest.mark.parametrize("n", [57, 192, 300])
 def test_lap_batched_launch_equals_single_launches(dev, n):
-    costs = torch.from_numpy(np.stack([_lap_costs(n, kind, seed=s) for s, kind in
+    costs = torch.from_numpy(np.stack([lap_costs(n, kind, seed=s) for s, kind in
                                        enumerate(["random", "tracking", "tracking", "random"])])).to(dev)
     before = lap.launches
     batched = lap.solve_lap(costs)
@@ -407,6 +451,14 @@ def test_lap_batched_launch_equals_single_launches(dev, n):
     assert lap.launches == before + 5
     for b in range(4):
         assert torch.equal(batched[b], singles[b])
+    np.testing.assert_array_equal(batched.cpu().numpy(), lap.solve_lap_plain(costs.cpu()).numpy())
+
+
+@pytest.mark.parametrize("n", [5, 192, 300, 1025])
+def test_lap_kernel_gives_minus_one_rows_on_an_all_inf_matrix(dev, n):
+    out = lap.solve_lap(torch.full((2, n, n), float("inf"), device=dev))
+    torch.cuda.synchronize()
+    assert out.tolist() == [[-1] * n] * 2
 
 
 def test_lap_kernel_checks_its_inputs(dev):
