@@ -113,7 +113,26 @@ Phases (any failure exits non-zero, nothing is caught):
    within 4 LSB of the host canvas; prescale ms a frame, host against
    device; (stream phase (c) also reads the one-shot peak at 48 and 96
    frames: it may grow by the 48 canvases plus 5%);
-11. with ``--profile``: one more run of the slice (24 frames) under
+11. multi-device (``eagle_tpu_torch/parallel``, torch.distributed): (a) a
+   one-rank NCCL group: ``MultiClipRunner(model, mesh=make_mesh())`` on the
+   slice's weights over make_frames(96) as clips [48, 48] (its results
+   gathered by NCCL's ``all_gather``) equals the runner without a process
+   group exactly, flow launches counted around it; the time-sharded
+   keypoint scan of the slice's 48 frames (oracle keypoints every 8
+   frames, a homography every 24, the oracle players) over the one rank
+   equals ``scan_chunk`` (the one-rank identity: at size 1 the halo and the
+   warm start send no message and the rank runs one cold pass, so this
+   checks the plumbing and NCCL's gather, not the ring; NCCL's
+   ``batch_isend_irecv`` ring needs two cards and never runs here); (b) two
+   gloo ranks spawned on the one card (NCCL
+   refuses two ranks on one device), each loading the slice's weights:
+   clips [48, 40] over the two ranks, each clip equal to its own
+   ``get_coordinates`` in this process; the halo exchange of the 48 frames
+   bit-equal to the frames shifted by one; the time-sharded scan over 2 x
+   24 frames (boundaries on both cadences) equal to (a)'s ``scan_chunk``;
+   each rank's flow launches (counted around its run, > 0), its peak device
+   memory and wall time, and the phase's; a failing rank fails the run;
+12. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
@@ -202,6 +221,15 @@ EXACT_REF_SLOTS = (24, 32)
 MC_PAIRS = 4
 MC_SPLITS = ([48, 48], [48, 40])
 MC_LENS = [24, 24, 20, 12]
+#: the multi-device phase: (a) one NCCL rank on make_frames(96) as two
+#: clips; (b) two gloo ranks sharing the card, one clip each, and the
+#: time-sharded scan of the slice's frames in segments of MD_SEGMENT, its
+#: keypoint and homography cadences dividing the segment (so it is exact)
+MD_CLIPS_A = [48, 48]
+MD_CLIPS_B = [48, 40]
+MD_RANKS = 2
+MD_SEGMENT = 24
+MD_KP_EVERY, MD_H_EVERY = 8, 24
 #: the device prescale (prescale="device") against the host canvas, and
 #: the port against the JAX package's device letterbox, largest byte
 #: difference: measured at most 4 on noise frames
@@ -2080,6 +2108,206 @@ def phase_multiclip(frames, pts, model) -> dict:
     return entry
 
 
+def md_scan_inputs(frames, pts, dev):
+    """Time-stacked ``FrameInputs`` of ``frames`` on ``dev`` for the
+    time-sharded scan: the oracle keypoints on every MD_KP_EVERY-th frame, a
+    homography every MD_H_EVERY-th, the oracle players as detections, ``t``
+    global; no previous frames (the caller's halo or shift)."""
+    import torch
+
+    from eagle_tpu_torch.ops.optical_flow import upload_frames
+    from eagle_tpu_torch.pipeline import temporal
+
+    n = len(frames)
+    kp_fn, det_fn, _ = oracle_models(frames, pts)
+    kp, valid = kp_fn(frames)
+    kp_frame = np.arange(n) % MD_KP_EVERY == 0
+    boxes, conf, cls, dvalid = det_fn(frames)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return temporal.FrameInputs(
+        frame_bgr=upload_frames(frames, dev), prev_frame_bgr=None, model_kp=on(kp),
+        model_kp_valid=on(valid & kp_frame[:, None]), is_kp_frame=kp_frame, is_h_frame=np.arange(n) % MD_H_EVERY == 0,
+        det_boxes=on(boxes), det_conf=on(conf), det_cls=on(cls.astype(np.int64)), det_valid=on(dvalid), t=np.arange(n),
+    )
+
+
+def md_sequential(xs, cfg):
+    """``scan_chunk`` of the whole clip: (kp_xy, kp_valid, H, H_ok) tensors."""
+    from eagle_tpu_torch.pipeline import temporal
+
+    prev = xs.frame_bgr[np.maximum(np.arange(len(xs.t)) - 1, 0)]
+    _, out = temporal.scan_chunk(temporal.init_carry(cfg, xs.frame_bgr.device), xs._replace(prev_frame_bgr=prev),
+                                 cfg, SEED)
+    return out.kp_xy, out.kp_valid, out.H, out.H_ok
+
+
+def multidevice_nccl(model, frames96, frames, pts, work: str) -> dict:
+    """(a) One NCCL rank: the runner over ``make_mesh()`` against the runner
+    without a process group, and the time-sharded scan over the rank
+    against ``scan_chunk`` (at size 1 no message is sent and the rank runs
+    one cold pass: an identity that checks the plumbing, not the ring).  Returns the flow launches of the runner's run
+    and the scan's outputs (numpy), which (b) is held to."""
+    import torch
+    import torch.distributed as dist
+
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.parallel.mesh import gather_batch, make_mesh
+    from eagle_tpu_torch.parallel.timeshard import halo_exchange_prev, timesharded_keypoint_scan
+    from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
+
+    starts = np.cumsum([0] + MD_CLIPS_A[:-1])
+    clips = [frames96[a : a + n] for a, n in zip(starts, MD_CLIPS_A)]
+    want = MultiClipRunner(model).run(clips, FPS, num_keypoint_detection=3)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl_store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        if (mesh.size, mesh.backend, mesh.device.type) != (1, "nccl", "cuda"):
+            fail(f"make_mesh under a one-rank NCCL group gave {mesh}")
+        torch.cuda.synchronize()
+        of.launches = 0
+        t0 = time.perf_counter()
+        got = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = of.launches
+        for ci in range(len(clips)):
+            if got[ci] != want[ci]:
+                bad = [i for i in want[ci] if got[ci].get(i) != want[ci][i]]
+                fail(f"multi-device (a): clip {ci} over the one NCCL rank differs from the runner without a process "
+                     f"group at frames {bad[:10]}")
+        if launches < sum(MD_CLIPS_A) - len(MD_CLIPS_A):
+            fail(f"multi-device (a): the flow kernel launched {launches} times for {sum(MD_CLIPS_A)} frames")
+        xs = md_scan_inputs(frames, pts, mesh.device)
+        seq = md_sequential(xs, model.config)
+        local = xs._replace(prev_frame_bgr=halo_exchange_prev(xs.frame_bgr, mesh))
+        ts = [gather_batch(a, mesh) for a in timesharded_keypoint_scan(mesh, model.config, SEED, local)]
+        for name, a, b in zip(("kp_xy", "kp_valid", "H", "H_ok"), ts, seq):
+            if not torch.equal(a, b):
+                fail(f"multi-device (a): the time-sharded scan over one rank differs from scan_chunk in {name}")
+        if not bool(seq[3].any()):
+            fail("multi-device (a): scan_chunk of the slice's frames found no homography: RANSAC was not exercised")
+    finally:
+        dist.destroy_process_group()
+    n = sum(MD_CLIPS_A)
+    print(f"multi-device (a) one NCCL rank: MultiClipRunner over make_mesh(), clips {MD_CLIPS_A} at full width, == the "
+          f"runner without a process group; {n} frames in {wall:.3f} s = {n / wall:.2f} fps, lk_flow launches "
+          f"{launches}; the time-sharded scan of {len(frames)} frames over the rank == scan_chunk "
+          f"({int(seq[1].sum())} valid keypoints, {int(seq[3].sum())} frames with a homography; the one-rank "
+          f"identity: no message sent, one cold pass)")
+    return {"launches": launches, "seq": [a.cpu().numpy() for a in seq]}
+
+
+def md_rank(rank: int, size: int, work: str) -> None:
+    """(b) One gloo rank on the card (spawned): the slice's weights from
+    ``work/weights.pt``; ``MultiClipRunner`` over the ranks' mesh on clips
+    MD_CLIPS_B of make_frames(96); the halo exchange of the slice's frames;
+    the time-sharded scan.  Writes ``work/rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from eagle_tpu_torch import DEFAULT_CONFIG
+    from eagle_tpu_torch.ops import optical_flow as of
+    from eagle_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+    from eagle_tpu_torch.parallel.timeshard import halo_exchange_prev, timesharded_keypoint_scan
+    from eagle_tpu_torch.pipeline import temporal
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work}/gloo_store", rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh()
+        model = CoordinateModel(config=DEFAULT_CONFIG, seed=SEED, device=mesh.device)
+        weights = torch.load(f"{work}/weights.pt", map_location=mesh.device)
+        model.keypoint_model.load_state_dict(weights["keypoint"])
+        model.detector_model.load_state_dict(weights["detector"])
+        frames96, _ = make_frames(96)
+        starts = np.cumsum([0] + MD_CLIPS_B[:-1])
+        clips = [frames96[a : a + n] for a, n in zip(starts, MD_CLIPS_B)]
+        model.get_coordinates(frames96[:16], FPS, num_keypoint_detection=3)  # warm-up, as the slice's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        of.launches = 0
+        t0 = time.perf_counter()
+        res = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = of.launches
+        frames, pts = make_frames(N_FRAMES)
+        xs = md_scan_inputs(frames, pts, mesh.device)
+        halo = gather_batch(halo_exchange_prev(shard_batch(xs.frame_bgr, mesh), mesh), mesh)
+        local = temporal.FrameInputs(*(None if v is None else shard_batch(v, mesh) for v in xs))
+        local = local._replace(prev_frame_bgr=halo_exchange_prev(local.frame_bgr, mesh))
+        of.launches = 0
+        ts = [gather_batch(a, mesh).cpu() for a in timesharded_keypoint_scan(mesh, model.config, SEED, local)]
+        torch.save({"res": res, "wall": wall, "launches": launches, "scan_launches": of.launches,
+                    "halo": bool(torch.equal(halo[1:], xs.frame_bgr[:-1]) and torch.equal(halo[0], xs.frame_bgr[0])),
+                    "ts": ts, "peak": torch.cuda.max_memory_allocated(), "device": str(mesh.device)},
+                   f"{work}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def multidevice_gloo(model, frames96, seq, work: str) -> list[int]:
+    """(b) Two gloo ranks spawned on the card.  Returns each rank's flow
+    launches in its runner's run."""
+    import torch
+
+    starts = np.cumsum([0] + MD_CLIPS_B[:-1])
+    singles = [model.get_coordinates(frames96[a : a + n], FPS, num_keypoint_detection=3)
+               for a, n in zip(starts, MD_CLIPS_B)]
+    torch.save({"keypoint": model.keypoint_model.state_dict(), "detector": model.detector_model.state_dict()},
+               f"{work}/weights.pt")
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(md_rank, args=(MD_RANKS, work), nprocs=MD_RANKS, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False) for r in range(MD_RANKS)]
+    for r, got in enumerate(ranks):
+        for ci, want in enumerate(singles):
+            if got["res"][ci] != want:
+                bad = [i for i in want if got["res"][ci].get(i) != want[i]]
+                fail(f"multi-device (b): rank {r}'s clip {ci} differs from the clip's own run at frames {bad[:10]}")
+        if not got["halo"]:
+            fail(f"multi-device (b): rank {r}'s halo exchange is not the frames shifted by one")
+        for name, a, b in zip(("kp_xy", "kp_valid", "H", "H_ok"), got["ts"], seq):
+            if not np.array_equal(a.numpy(), b):
+                fail(f"multi-device (b): rank {r}'s time-sharded scan differs from scan_chunk in {name}")
+        if got["launches"] <= 0 or got["scan_launches"] <= 0:
+            fail(f"multi-device (b): rank {r} launched the flow kernel {got['launches']} + {got['scan_launches']} times")
+    n = sum(MD_CLIPS_B)
+    per_rank = "; ".join(
+        f"rank {r} on {g['device']}: its clip in {g['wall']:.3f} s ({MD_CLIPS_B[r] / g['wall']:.2f} fps), lk_flow "
+        f"launches {g['launches']} (runner) + {g['scan_launches']} (scan), peak device memory "
+        f"{g['peak'] / 2**30:.4f} GiB" for r, g in enumerate(ranks))
+    print(f"multi-device (b) {MD_RANKS} gloo ranks sharing one card [{card_line()}]: clips {MD_CLIPS_B}, each == its "
+          f"own run; the halo == the frames shifted; the time-sharded scan over {MD_RANKS} x {MD_SEGMENT} frames == "
+          f"scan_chunk; {per_rank}; phase wall {wall:.3f} s from spawn to join ({n} frames over the ranks: "
+          f"{n / max(g['wall'] for g in ranks):.2f} fps of two processes contending for one card, not a scaling "
+          f"figure)")
+    return [g["launches"] for g in ranks]
+
+
+def phase_multidevice(model, frames, pts) -> dict:
+    """(a) one NCCL rank, (b) two gloo ranks on the card.  Returns the flow
+    entry's multi-device launch fields."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    frames96, _ = make_frames(96)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        a = multidevice_nccl(model, frames96, frames, pts, work)
+        b = multidevice_gloo(model, frames96, a["seq"], work)
+    print(f"multi-device: phase wall {time.perf_counter() - t0:.1f} s")
+    return {"launches_multidevice": {"nccl_rank": a["launches"], "gloo_ranks": b}}
+
+
 def phase_prescale(model, frames) -> None:
     """The prescale paths: the slice model on 640x360 and 854x480 frames
     (the 4:2:0 letterbox outside the fused kernel's envelope, upscaling),
@@ -2270,6 +2498,7 @@ def main() -> int:
     phase_process(frames, pts)
     flow.update(phase_stream(frames, pts, model, slice_res))
     clips_entry = phase_multiclip(frames, pts, model)
+    flow.update(phase_multidevice(model, frames, pts))
     phase_prescale(model, frames)
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)

@@ -6,8 +6,9 @@ The port's modules name their sub-modules after the pytree keys, so the
 map is mechanical: dict keys and list indices join with ".", ``None``
 entries are skipped (their ``nn.Identity`` placeholders hold no state),
 and every 4-D leaf, a conv kernel, is transposed HWIO -> OIHW (a depthwise
-kernel (3, 3, 1, C) becomes (C, 1, 3, 3)).  Nothing here imports the JAX
-package: leaves only need ``numpy.asarray``.
+kernel (3, 3, 1, C) becomes (C, 1, 3, 3)).  :func:`params_from_module`
+is the inverse: a module back to the JAX package's pytree.  Nothing here
+imports the JAX package: leaves only need ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,29 @@ def flatten_params(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
         arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     out[prefix[:-1]] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C", copy=True))
     return out
+
+
+def params_from_module(module: torch.nn.Module) -> Any:
+    """The inverse of :func:`flatten_params`: a port module -> the JAX
+    package's pytree of float32 numpy leaves (HWIO conv kernels).  A
+    ``ModuleList`` is a list, an ``nn.Identity`` placeholder ``None``, any
+    other module a dict of its parameters and persistent buffers and its
+    children's trees."""
+    if isinstance(module, torch.nn.Identity):
+        return None
+    if isinstance(module, torch.nn.ModuleList):
+        return [params_from_module(m) for m in module]
+    tree: dict[str, Any] = {}
+    tensors = {**module._parameters, **{k: v for k, v in module._buffers.items()
+                                        if k not in module._non_persistent_buffers_set}}
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        tree[name] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr)  # OIHW -> HWIO
+    for name, child in module.named_children():
+        tree[name] = params_from_module(child)
+    return tree
 
 
 def hrnet_from_jax(params: Any, use_bf16: bool = False) -> HRNet:

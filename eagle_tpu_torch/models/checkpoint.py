@@ -1,6 +1,7 @@
-"""Parameter checkpoints in flax's msgpack format, read without flax or the
-``msgpack`` package (counterpart of the JAX package's
-``eagle_tpu/models/checkpoint.py::load_params``).
+"""Parameter checkpoints in flax's msgpack format, read and written without
+flax or the ``msgpack`` package (counterpart of the JAX package's
+``eagle_tpu/models/checkpoint.py``: ``load_params``, ``save_params``,
+``convert_and_save``).
 
 The JAX package persists converted parameter pytrees with
 ``flax.serialization.to_bytes``: a msgpack document of nested maps whose
@@ -15,12 +16,22 @@ modules.
 
 The decoder knows the types such a document holds -- maps, arrays, str,
 bin, nil, bool, int, float and the extension types 1 (array) and 3 (numpy
-scalar, the same payload) -- and raises, naming it, on anything else,
-including flax's chunked arrays (leaves over 1 GiB).
+scalar, the same payload) -- and raises, naming it, on anything else.  It
+joins flax's chunked arrays (leaves over 1 GiB, split into flat chunks).
+
+The encoder (:func:`to_bytes`) writes the bytes
+``flax.serialization.to_bytes`` writes for the same tree: lists as maps
+keyed ``"0"``, ``"1"``, ..., array leaves as type-1 extensions (numpy
+scalars type 3) in msgpack's smallest encodings, leaves over 1 GiB
+chunked.  :func:`save_params` first maps the tree as the JAX package's
+does (leaves through ``numpy.asarray``, dict keys sorted).  It writes no ``<path>.tree``: a JAX
+treedef cannot be written without JAX, so the JAX package reads the file
+with ``load_params(path, template=...)``.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -29,6 +40,8 @@ import numpy as np
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+#: flax's ``MAX_CHUNK_SIZE``: leaves of more bytes are written in chunks
+MAX_CHUNK_SIZE = 2**30
 
 
 class _Reader:
@@ -106,8 +119,13 @@ class _Reader:
             if not isinstance(key, str):
                 self.fail(f"map key {key!r} that is not a string")
             out[key] = self.value()
-        if _CHUNKED in out:
-            self.fail("a flax chunked array (a leaf over 1 GiB), which this reader does not join")
+        if _CHUNKED in out:  # flax's chunked leaf: flat chunks and the shape
+            try:
+                shape = tuple(out["shape"][str(i)] for i in range(len(out["shape"])))
+                chunks = [out["chunks"][str(i)] for i in range(len(out["chunks"]))]
+                return np.concatenate(chunks).reshape(shape)
+            except (KeyError, TypeError, ValueError):
+                self.fail("a malformed flax chunked array (its shape and chunks do not make a leaf)")
         return out
 
     def ext(self, code: int, n: int):
@@ -139,3 +157,188 @@ def load_params(path: str) -> dict:
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: the document is a {type(tree).__name__}, not a parameter tree")
     return tree
+
+
+# ---------------------------------------------------------------------------
+# writing
+# ---------------------------------------------------------------------------
+
+
+def _head(out: list, n: int, fix: int | None, fix_max: int, codes) -> None:
+    """A length header: the fix form below ``fix_max``, else the first of
+    ``codes`` ((byte, struct format, limit)) whose limit holds ``n``."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for code, fmt, limit in codes:
+        if n <= limit:
+            out.append(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack cannot hold a length of {n}")
+
+
+_STR = ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF), (0xDB, ">I", 0xFFFFFFFF))
+_BIN = ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF), (0xC6, ">I", 0xFFFFFFFF))
+_ARRAY = ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF))
+_MAP = ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF))
+_EXT = ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF), (0xC9, ">I", 0xFFFFFFFF))
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _int(out: list, v: int) -> None:
+    """msgpack's smallest encoding of an int."""
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+    elif v > 0:
+        for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF), (0xCE, ">I", 0xFFFFFFFF),
+                                 (0xCF, ">Q", 2**64 - 1)):
+            if v <= limit:
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"msgpack cannot hold the int {v}")
+    else:
+        for code, fmt, bits in ((0xD0, ">b", 7), (0xD1, ">h", 15), (0xD2, ">i", 31), (0xD3, ">q", 63)):
+            if v >= -(1 << bits):
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"msgpack cannot hold the int {v}")
+
+
+def _array_payload(arr: np.ndarray) -> bytes:
+    """flax's array payload: the msgpack of (shape, dtype name, C-order
+    bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not written")
+    out: list = []
+    _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], out)
+    return b"".join(out)
+
+
+def _pack(obj, out: list) -> None:
+    """msgpack of ``obj`` as ``msgpack.packb(obj, strict_types=True)`` with
+    flax's extension hook writes it."""
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif type(obj) is int:
+        _int(out, obj)
+    elif type(obj) is float:
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif type(obj) is str:
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), 0xA0, 31, _STR)
+        out.append(raw)
+    elif type(obj) is bytes:
+        _head(out, len(obj), None, 0, _BIN)
+        out.append(obj)
+    elif type(obj) is list:
+        _head(out, len(obj), 0x90, 15, _ARRAY)
+        for v in obj:
+            _pack(v, out)
+    elif type(obj) is dict:
+        _head(out, len(obj), 0x80, 15, _MAP)
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        payload = _array_payload(np.asarray(obj))
+        if len(payload) in _FIXEXT:
+            out.append(bytes([_FIXEXT[len(payload)]]))
+        else:
+            _head(out, len(payload), None, 0, _EXT)
+        out.append(struct.pack(">b", code) + payload)
+    else:
+        raise TypeError(f"cannot write a {type(obj).__name__} into a flax msgpack checkpoint")
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    """flax's chunked form of a leaf over ``MAX_CHUNK_SIZE`` bytes."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i : i + size] for i in range(0, flat.size, size)]
+    return {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _state(tree):
+    """flax's state dict of a tree, as its serializer sees it: lists and
+    tuples as maps keyed by index, keys as strings, in their order; array
+    leaves over ``MAX_CHUNK_SIZE`` bytes chunked; other leaves as they
+    are."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        keys = [str(k) for k in tree]
+        if len(set(keys)) != len(keys):
+            raise ValueError(f"dict keys {list(tree)} have no unique string form")
+        return {str(k): _state(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        return _chunk(tree)
+    return tree
+
+
+def _as_arrays(tree):
+    """Every leaf through ``numpy.asarray`` (``None`` kept), as the JAX
+    package's ``save_params`` maps it before writing, with JAX's tree map's
+    effect on order: every dict's keys sorted."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _as_arrays(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_arrays(v) for v in tree)
+    return np.asarray(tree)
+
+
+def to_bytes(tree) -> bytes:
+    """The bytes of ``flax.serialization.to_bytes`` of a tree of dicts,
+    lists, tuples, ``None``, Python scalars, strings and numpy leaves."""
+    out: list = []
+    _pack(_state(tree), out)
+    return b"".join(out)
+
+
+def save_params(params, path: str) -> str:
+    """Write a parameter tree -- the JAX package's layout (nested dicts and
+    lists, HWIO conv kernels), or a port module, taken back to that layout
+    by :func:`eagle_tpu_torch.models.bridge.params_from_module` -- as a
+    flax msgpack checkpoint, every leaf through ``numpy.asarray`` first.  The JAX package reads it with
+    ``load_params(path, template=...)``, this package with
+    :func:`load_params`.  Returns ``path``."""
+    import torch
+
+    if isinstance(params, torch.nn.Module):
+        from eagle_tpu_torch.models.bridge import params_from_module
+
+        params = params_from_module(params)
+    data = to_bytes(_as_arrays(params))
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def convert_and_save(torch_path: str, out_path: str, kind: str) -> str:
+    """A torch checkpoint -> a ``.msgpack`` one: ``kind`` "hrnet" (the
+    reference's ``KeypointModel`` state dict) or "yolov8" (an ultralytics
+    state dict, keys with or without the ``model.`` prefix).  As the JAX
+    package, the file is loaded with ``torch.load(weights_only=False)`` (a
+    trusted file: it may hold the module, whose ``state_dict()`` is taken)."""
+    import torch
+
+    from eagle_tpu_torch.models.convert import hrnet_from_torch, yolov8_from_torch
+
+    sd = torch.load(torch_path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    if isinstance(sd, dict) and "model" in sd and hasattr(sd["model"], "state_dict"):
+        sd = sd["model"].state_dict()  # ultralytics .pt layout
+    if kind == "hrnet":
+        params = hrnet_from_torch(sd)
+    elif kind == "yolov8":
+        params = yolov8_from_torch(sd, prefix="model." if any(k.startswith("model.") for k in sd) else "")
+    else:
+        raise ValueError(f"unknown kind: {kind}")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    return save_params(params, out_path)

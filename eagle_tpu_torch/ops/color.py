@@ -3,7 +3,14 @@ V in [0, 255]); PyTorch counterpart of ``eagle_tpu/ops/color.py``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+#: cv2's 8-bit HSV tables (``hsv_shift`` 12): 255 / v and 180 / (6 diff)
+#: in fixed point
+_HSV_SHIFT = 12
+_SDIV = np.array([0] + [round((255 << _HSV_SHIFT) / i) for i in range(1, 256)], np.int64)
+_HDIV = np.array([0] + [round((180 << _HSV_SHIFT) / (6 * i)) for i in range(1, 256)], np.int64)
 
 
 def bgr_to_hsv(bgr: torch.Tensor) -> torch.Tensor:
@@ -22,6 +29,22 @@ def bgr_to_hsv(bgr: torch.Tensor) -> torch.Tensor:
     h = torch.where(c > 0, h6 * 30.0, torch.zeros_like(c))
     s = torch.where(v > 0, c / torch.where(v > 0, v, one) * 255.0, torch.zeros_like(c))
     return torch.stack([h, s, v], dim=-1)
+
+
+def bgr_to_hsv_u8(bgr: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 BGR -> uint8 HSV as ``cv2.cvtColor(.., COLOR_BGR2HSV)``
+    computes it (its integer tables and rounding; equal on all 2^24
+    colours), in numpy on the host."""
+    x = np.asarray(bgr).astype(np.int64)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
 
 
 def hue(bgr: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,6 @@ from eagle_tpu_torch.models.osnet import OSNet, embed_boxes, init_osnet, osnet_f
 from eagle_tpu_torch.models.yolov8 import CONFIG_VARIANTS, init_yolov8
 from eagle_tpu_torch.ops.embed import HIST_BINS, histogram_embeddings
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
-from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.ops.nms import batched_nms
 from eagle_tpu_torch.ops.optical_flow import alloc_frames, carry_frame, upload_frames
 from eagle_tpu_torch.ops.preprocess import (
@@ -522,17 +521,9 @@ class CoordinateModel:
                 mem_valid[base + j] |= seed_ok[j]
 
     def _ransac_draws(self, cfg: PipelineConfig):
-        """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw (the JAX package's
-        stream, reproduced on the host) as a device tensor, made once a
-        ``t``."""
-        cache: dict[int, torch.Tensor] = {}
-
-        def gumbel_fn(t: int) -> torch.Tensor:
-            if t not in cache:
-                cache[t] = torch.from_numpy(ransac_gumbel(self.seed, t, cfg.homography.ransac_iters, 57)).to(self.device)
-            return cache[t]
-
-        return gumbel_fn
+        """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw under the model's
+        seed, on its device (:func:`temporal.ransac_draws`)."""
+        return temporal.ransac_draws(self.seed, cfg, self.device)
 
     def _custom_keypoints(self, frames: np.ndarray) -> np.ndarray:
         kp, valid = self._keypoint_fn(frames)

@@ -19,8 +19,13 @@ Both run the reference's on-demand keypoint rounds (flow collapse below 4
 points on a non-cadence frame): the flagged frames get model keypoints
 and the steps rerun from the first of them, at most 3 times.
 
-One device: a mesh of more waits for ``ROADMAP.md`` Queue 1, item
-"multi-device".
+Over a mesh of more than one rank (:func:`eagle_tpu_torch.parallel.mesh.make_mesh`,
+one process a rank), every rank calls :meth:`MultiClipRunner.run` with the
+same clips; rank r runs its contiguous block of them (split as
+``pad_to_multiple`` pads them; pad clips are never run or returned)
+through the machinery above, and every rank returns every clip's dict.
+A clip's result depends only on its own frames and its own on-demand
+rounds, so it is the same on any rank.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch.ops.optical_flow import upload_frames
+from eagle_tpu_torch.parallel.mesh import Mesh, block, gather_objects, make_mesh, same_device
 from eagle_tpu_torch.pipeline import temporal
 from eagle_tpu_torch.pipeline.coordinate_model import ONDEMAND_ROUNDS, PIECE, CoordinateModel, StageTimer
 from eagle_tpu_torch.pipeline.transfer import drain_together
@@ -40,17 +46,17 @@ class MultiClipRunner:
     >>> runner = MultiClipRunner(model)
     >>> results = runner.run([clip_a, clip_b], fps=24)   # list of dicts
 
-    ``mesh``: None (the model's device) or a mesh of one device (anything
-    with ``devices``, or a sequence of devices); more raise
-    ``NotImplementedError``."""
+    ``mesh``: a :class:`~eagle_tpu_torch.parallel.mesh.Mesh` whose device is
+    the model's, a sequence of devices (one without a process group), or
+    None: ``make_mesh(model.config.mesh)`` on the model's device (over the
+    process group's ranks when one is initialised, else one rank)."""
 
     def __init__(self, model: CoordinateModel, mesh=None):
-        devices = [] if mesh is None else np.asarray(getattr(mesh, "devices", mesh), dtype=object).reshape(-1)
-        if len(devices) > 1:
-            raise NotImplementedError(
-                f"MultiClipRunner runs on one device; a mesh of {len(devices)} devices waits for ROADMAP.md "
-                'Queue 1, item "multi-device"'
-            )
+        if not isinstance(mesh, Mesh):
+            devices = None if mesh is None else np.asarray(getattr(mesh, "devices", mesh), dtype=object).reshape(-1)
+            mesh = make_mesh(model.config.mesh, devices=devices, device=model.device if mesh is None else None)
+        if mesh.device != same_device(model.device):
+            raise ValueError(f"the mesh puts this rank on {mesh.device} and the model is on {model.device}")
         self.model = model
         self.mesh = mesh
 
@@ -63,8 +69,19 @@ class MultiClipRunner:
         verbose: bool = False,
         profile: StageTimer | None = None,
     ) -> list[dict]:
-        """One ``get_coordinates`` dict per clip.  ``profile``: a
-        :class:`StageTimer` accumulating the stages' wall-clock seconds."""
+        """One ``get_coordinates`` dict per clip, on every rank of the mesh.
+        ``profile``: a :class:`StageTimer` accumulating the stages'
+        wall-clock seconds (this rank's)."""
+        kw = dict(num_homography=num_homography, num_keypoint_detection=num_keypoint_detection,
+                  verbose=verbose, profile=profile)
+        if self.mesh.group is None:
+            return self._run(clips, fps, **kw)
+        lo, hi = block(len(clips), self.mesh)
+        mine = self._run(clips[lo:hi], fps, **kw) if hi > lo else []
+        return [r for part in gather_objects(mine, self.mesh) for r in part]
+
+    def _run(self, clips, fps, num_homography, num_keypoint_detection, verbose, profile) -> list[dict]:
+        """The clips on this rank's device."""
         model = self.model
         timer = profile or StageTimer(model.device)
         clips = [np.asarray(c) for c in clips]
@@ -147,34 +164,32 @@ class MultiClipRunner:
 
         # the clip-batched step over t = 0..L-1, with per-step carry
         # checkpoints; an on-demand round reruns from its first flagged step
-        clip_frames = frames.unflatten(0, (C, L))
         clip_det = det.unflatten(0, (C, L))
+        steps = np.tile(np.arange(L), (C, 1))
+        xs = temporal.FrameInputs(
+            frame_bgr=frames.unflatten(0, (C, L)),
+            prev_frame_bgr=None,  # each clip's own frames shifted by one
+            model_kp=None,
+            model_kp_valid=None,
+            is_kp_frame=steps % kp_interval == 0,
+            is_h_frame=steps % h_interval == 0,
+            det_boxes=clip_det[..., :4],
+            det_conf=clip_det[..., 4],
+            det_cls=clip_det[..., 5].to(torch.int64),
+            det_valid=clip_det[..., 6] > 0.5,
+            t=steps,
+            det_embed=clip_det[..., 7:] if appearance else None,
+        )
         real = np.arange(L)[None, :] < np.asarray(lengths)[:, None]
         carries = [temporal.stack_clips([temporal.init_carry(cfg, dev) for _ in range(C)])] + [None] * L
         outs: list = [None] * L
         start = 0
         for _round in range(ONDEMAND_ROUNDS):
             with timer("temporal"):
-                mk = torch.from_numpy(mem_kp).to(dev).unflatten(0, (C, L))
-                mv = torch.from_numpy(mem_valid).to(dev).unflatten(0, (C, L))
-                for t in range(start, L):
-                    d = clip_det[:, t]
-                    xs = temporal.FrameInputs(
-                        frame_bgr=clip_frames[:, t],
-                        prev_frame_bgr=clip_frames[:, max(t - 1, 0)],
-                        model_kp=mk[:, t],
-                        model_kp_valid=mv[:, t],
-                        is_kp_frame=[t % kp_interval == 0] * C,
-                        is_h_frame=[t % h_interval == 0] * C,
-                        det_boxes=d[..., :4],
-                        det_conf=d[..., 4],
-                        det_cls=d[..., 5].to(torch.int64),
-                        det_valid=d[..., 6] > 0.5,
-                        t=[t] * C,
-                        det_embed=d[..., 7:] if appearance else None,
-                    )
-                    carries[t + 1], outs[t] = temporal.temporal_step_clips(carries[t], xs, cfg, gumbel_fn)
-                    model.frames_stepped += C
+                xs = xs._replace(model_kp=torch.from_numpy(mem_kp).to(dev).unflatten(0, (C, L)),
+                                 model_kp_valid=torch.from_numpy(mem_valid).to(dev).unflatten(0, (C, L)))
+                temporal.scan_clips(carries, outs, xs, cfg, gumbel_fn, start)
+                model.frames_stepped += C * (L - start)
                 need = torch.stack([o.need_kp for o in outs], dim=1).cpu().numpy()
             flagged = np.flatnonzero((need & real).reshape(-1) & ~mem_attempted)
             if len(flagged) == 0:

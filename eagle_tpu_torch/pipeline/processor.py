@@ -10,6 +10,8 @@ Stages (:meth:`Processor.process_data`):
   2. team assignment by jersey-colour votes: every eligible player crop is
      cut and resampled on the host, then clustered and counted in one
      batched pass on the Processor's device (:mod:`eagle_tpu_torch.ops.kmeans`);
+     with ``ProcessorConfig.team_assign="host"``, one sklearn KMeans a
+     crop on the host (:meth:`Processor.detect_color`);
   3. goalkeeper / player id unification and track-fragment merging;
   4. per-column linear interpolation (and optional smoothing).
 
@@ -28,6 +30,7 @@ is a tautology and never merges); ``ProcessorConfig.enable_fragment_merge
 
 from __future__ import annotations
 
+import copy
 import math
 from collections import Counter
 
@@ -35,8 +38,9 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch.config import ProcessorConfig
+from eagle_tpu_torch.ops.color import bgr_to_hsv_u8
 from eagle_tpu_torch.ops.kalman import CvKalman2D
-from eagle_tpu_torch.ops.kmeans import COLOR_NAMES, crop_color_votes, gather_crops_host
+from eagle_tpu_torch.ops.kmeans import COLOR_NAMES, COLOR_TABLE, crop_color_votes, gather_crops_host
 from eagle_tpu_torch.pipeline.coordinate_model import StageTimer, resolve_device
 
 CORNER_COLS = ["Bottom_Left", "Top_Left", "Top_Right", "Bottom_Right"]
@@ -217,6 +221,14 @@ class _BallSelectState:
         self.prev_idx = None
         self.removed = 0
 
+    def clone(self) -> "_BallSelectState":
+        """A copy to warm-start a neighbour's segment from (its removal
+        count starts at 0)."""
+        out = _BallSelectState(copy.deepcopy(self.kf))
+        out.prev_pos = None if self.prev_pos is None else self.prev_pos.copy()
+        out.prev_idx = self.prev_idx
+        return out
+
 
 def _ball_select_step(state: _BallSelectState, i: int, candidates, filter: bool, threshold: float):
     """One frame of the reference's selection loop, mutating ``state`` and
@@ -280,11 +292,8 @@ class Processor:
             f"Length of coords ({len(coords)}) and frames ({len(frames)}) should be the same"
         )
         self.config = config or ProcessorConfig()
-        if self.config.team_assign != "device":
-            raise NotImplementedError(
-                "only the device team assignment is ported (ProcessorConfig.team_assign='device'); "
-                "the host backend runs sklearn per crop"
-            )
+        if self.config.team_assign not in ("device", "host"):
+            raise ValueError(f"ProcessorConfig.team_assign must be 'device' or 'host', got {self.config.team_assign!r}")
         self.coords = coords
         self.frames = frames
         self.fps = fps
@@ -446,13 +455,64 @@ class Processor:
             print(f"Removed {state.removed} detections")
         return positions
 
+    def parse_ball_detections_segmented(
+        self,
+        detections: list,
+        segments: int,
+        num_to_init: int = 5,
+        filter: bool = True,
+        threshold: float = 100,
+        passes: int = 2,
+    ) -> list:
+        """The time-sharded :meth:`parse_ball_detections_with_kalman`, with
+        the warm start of :mod:`eagle_tpu_torch.parallel.timeshard`: pass 1
+        runs every segment from a cold start, each later pass re-runs each
+        segment from its left neighbour's final selector state of the pass
+        before.  Segment 0 is always exact; after ``p`` passes segments
+        1..p-1 are too; later segments carry a cold-start transient that the
+        constant-velocity filter forgets.  A segment that could neither
+        start its own filter nor inherit a state would return raw candidate
+        lists: then the whole stream takes the exact sequential pass."""
+        n = len(detections)
+        bounds = [round(k * n / segments) for k in range(segments + 1)]
+        outs: list = [None] * segments
+        carries: list = [None] * segments  # the state leaving segment k
+        no_kf = [False] * segments
+
+        for p in range(passes):
+            # a pass's segments run side by side: warm starts read the
+            # carries of the pass before
+            prev_carries = list(carries)
+            for k in range(segments):
+                if p > 0 and k == 0:
+                    continue  # segment 0's cold start is the sequential one
+                s0, s1 = bounds[k], bounds[k + 1]
+                seg = detections[s0:s1]
+                if p == 0 or prev_carries[k - 1] is None:
+                    kf = _init_ball_kf(seg, num_to_init)
+                    if kf is None:
+                        outs[k], carries[k], no_kf[k] = list(seg), None, True
+                        continue
+                    state = _BallSelectState(kf)
+                else:
+                    state = prev_carries[k - 1].clone()
+                outs[k] = [_ball_select_step(state, s0 + j, c, filter, threshold) for j, c in enumerate(seg)]
+                carries[k], no_kf[k] = state, False
+        if any(no_kf):
+            return self.parse_ball_detections_with_kalman(
+                detections, num_to_init=num_to_init, filter=filter, threshold=threshold
+            )
+        return [pos for seg in outs for pos in seg]
+
     # ------------------------------------------------------------------
 
     def get_team_mapping(self) -> dict:
         """Team id per player from jersey-colour votes: per-crop KMeans
         foreground segmentation and HSV range counts, each crop's votes
         weighted by 1 - its overlap; the two most common best colours are
-        the teams, other players take their best of those two."""
+        the teams, other players take their best of those two.  The votes:
+        one batched pass on the device (``team_assign="device"``) or
+        :meth:`detect_color` on each crop (``"host"``)."""
         return self._finish_team_mapping(self._start_team_votes())
 
     def _crop_entries(self) -> list:
@@ -495,7 +555,7 @@ class Processor:
         Returns (entries, votes tensor or None)."""
         with self.timer("crops"):
             entries = self._crop_entries()
-        if not entries:
+        if not entries or self.config.team_assign == "host":
             return (entries, None)
         fidx = np.array([e[0] for e in entries], np.int32)
         boxes = np.array([e[2] for e in entries], np.float32)
@@ -531,6 +591,12 @@ class Processor:
                     for ci in pos:
                         name = COLOR_NAMES[ci]
                         cc[name] = cc.get(name, 0.0) + 1.0 - prop
+            else:
+                for fi, pid, (x1, y1, x2, y2), prop in entries:
+                    crop = np.asarray(self.frames[fi])[y1:y2, x1:x2]
+                    for color, _cnt in self.detect_color(crop):
+                        counts.setdefault(pid, {}).setdefault(color, 0.0)
+                        counts[pid][color] += 1 - prop
 
             best_color = {pid: max(cc, key=cc.get) for pid, cc in counts.items()}
             top2 = Counter(best_color.values()).most_common(2)
@@ -547,6 +613,36 @@ class Processor:
                     cc.sort(key=lambda t: t[1], reverse=True)
                     mapping[pid] = id_map[cc[0][0]]
             return mapping
+
+    def detect_color(self, image: np.ndarray) -> list[tuple[str, int]]:
+        """Foreground jersey-colour counts of one uint8 BGR crop (the host
+        backend): sklearn's ``KMeans(n_clusters=2, random_state=0)`` on its
+        RGB pixels, the cluster of the majority of the four corners is
+        background, the foreground pixels counted in each cv2 HSV range
+        (red2 merged into red); the non-zero colours, most pixels first.
+        sklearn is imported here; without it this raises."""
+        try:
+            from sklearn.cluster import KMeans
+        except ImportError as e:
+            raise ImportError(
+                'ProcessorConfig.team_assign="host" runs sklearn\'s KMeans on each crop and sklearn is not '
+                'installed; team_assign="device" (the default) needs no sklearn'
+            ) from e
+
+        rgb = image[..., ::-1]
+        labels = KMeans(n_clusters=2, random_state=0).fit(rgb.reshape(-1, 3)).labels_.reshape(image.shape[:2])
+        corners = [labels[0, 0], labels[0, -1], labels[-1, 0], labels[-1, -1]]
+        background = max(set(corners), key=corners.count)
+        fg = labels != background
+        hsv = bgr_to_hsv_u8(image)
+        out = {}
+        for name, lo, hi in COLOR_TABLE:
+            inside = ((hsv >= np.array(lo)) & (hsv <= np.array(hi))).all(-1)
+            out[name] = int((inside & fg).sum())
+        out["red"] += out.pop("red2")
+        result = [(c, v) for c, v in out.items() if v > 0]
+        result.sort(key=lambda t: t[1], reverse=True)
+        return result
 
     # ------------------------------------------------------------------
 

@@ -38,7 +38,7 @@ from eagle_tpu_torch.config import PipelineConfig
 from eagle_tpu_torch.ops import color
 from eagle_tpu_torch.ops.corners import fit_similarity_robust, grid_corners
 from eagle_tpu_torch.ops.geometry import masked_median, synthesize_keypoints
-from eagle_tpu_torch.ops.homography import ransac_homography, sample_minimal_sets
+from eagle_tpu_torch.ops.homography import ransac_gumbel, ransac_homography, sample_minimal_sets
 from eagle_tpu_torch.ops.optical_flow import lk_flow, lk_flow_clips
 from eagle_tpu_torch.track import botsort
 
@@ -505,6 +505,81 @@ def temporal_step_clips(
         for c, (car, x, p, (H_new, inliers, ok)) in enumerate(zip(cars, clips, pre, solved))
     ]
     return stack_clips([s[0] for s in steps]), stack_clips([s[1] for s in steps])
+
+
+def ransac_draws(seed: int, cfg: PipelineConfig, device):
+    """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw under ``seed`` (the JAX
+    package's ``fold_in(key(seed), t)`` stream, reproduced on the host) as
+    a tensor on ``device``, made once a ``t``."""
+    cache: dict[int, torch.Tensor] = {}
+
+    def gumbel_fn(t: int) -> torch.Tensor:
+        if t not in cache:
+            cache[t] = torch.from_numpy(ransac_gumbel(seed, t, cfg.homography.ransac_iters, 57)).to(device)
+        return cache[t]
+
+    return gumbel_fn
+
+
+def scan_chunk(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, base_key: int):
+    """The plain sequential loop of :func:`temporal_step` over time-stacked
+    inputs (counterpart of the JAX package's ``scan_chunk``, the reference
+    of the time-sharded paths).  ``xs``' tensors have a leading time axis;
+    ``is_kp_frame``, ``is_h_frame`` and ``t`` are host sequences, ``t`` the
+    frames' global indices, which the RANSAC draws fold in.  ``base_key``:
+    the draws' seed (the JAX package's ``jax.random.key(seed)``).  Returns
+    (the final carry, :class:`FrameOutputs` stacked over time)."""
+    gumbel_fn = ransac_draws(base_key, cfg, carry.kp_xy.device)
+    outs = []
+    for i in range(len(xs.t)):
+        x = FrameInputs(*(None if v is None else v[i] for v in xs))
+        x = x._replace(is_kp_frame=bool(x.is_kp_frame), is_h_frame=bool(x.is_h_frame), t=int(x.t))
+        carry, out = temporal_step(carry, x, cfg, gumbel_fn)
+        outs.append(out)
+    return carry, stack_clips(outs)
+
+
+def scan_clips(carries: list, outs: list, xs: FrameInputs, cfg: PipelineConfig, gumbel_fn, start: int = 0) -> None:
+    """The clip-batched step over time (the loop of the JAX package's
+    ``multi_clip_scan``): :func:`temporal_step_clips` at t = start..L-1.
+    ``xs`` holds C clips' inputs, clip axis first and time second (its
+    ``is_kp_frame``, ``is_h_frame`` and ``t`` (C, L) host arrays);
+    ``prev_frame_bgr`` None derives each clip's previous frames from its
+    own, frame 0 repeating.  ``carries`` is a list of L + 1 carries of
+    which entry ``start`` is set; step t writes ``carries[t + 1]`` and
+    ``outs[t]``, so a rerun from a later step reuses the earlier ones."""
+    derive_prev = xs.prev_frame_bgr is None
+    for t in range(start, len(outs)):
+        x = FrameInputs(*(None if v is None else v[:, t] for v in xs))
+        x = x._replace(
+            prev_frame_bgr=xs.frame_bgr[:, max(t - 1, 0)] if derive_prev else x.prev_frame_bgr,
+            is_kp_frame=[bool(v) for v in x.is_kp_frame],
+            is_h_frame=[bool(v) for v in x.is_h_frame],
+            t=[int(v) for v in x.t],
+        )
+        carries[t + 1], outs[t] = temporal_step_clips(carries[t], x, cfg, gumbel_fn)
+
+
+def pack_outputs(out: FrameOutputs) -> torch.Tensor:
+    """A :class:`FrameOutputs` stacked over N rows -> one (N, F) float32
+    tensor, the fields flattened in order (the JAX package's
+    ``pack_outputs``), so it crosses to the host as one copy."""
+    n = out.kp_xy.shape[0]
+    return torch.cat([a.to(torch.float32).reshape(n, -1) for a in out], dim=-1)
+
+
+def unpack_outputs(arr: np.ndarray, max_tracks: int) -> FrameOutputs:
+    """The host inverse of :func:`pack_outputs` (numpy leaves)."""
+    n, t = arr.shape[0], max_tracks
+    specs = [((57, 2), np.float32), ((57,), bool), ((), bool), ((3, 3), np.float32), ((), bool),
+             ((t, 4), np.float32), ((t,), np.int32), ((t,), np.float32), ((t,), np.int32), ((t,), bool)]
+    fields, off = [], 0
+    for shape, dtype in specs:
+        size = int(np.prod(shape, dtype=int))
+        chunk = arr[:, off : off + size].reshape((n, *shape))
+        fields.append(chunk > 0.5 if dtype is bool else chunk.astype(dtype))
+        off += size
+    return FrameOutputs(*fields)
 
 
 def backward_seed(

@@ -156,8 +156,8 @@ def test_msgpack_loads_as_flax_restores(tmp_path, hrnet_params, model):
 
 def test_msgpack_reader_raises_on_what_it_does_not_know(tmp_path):
     """No quiet fallback: an extension type flax checkpoints do not use, a
-    chunked array, a truncated file and a document that is not a tree each
-    raise, naming the problem."""
+    malformed chunked array (shape but no chunks), a truncated file and a
+    document that is not a tree each raise, naming the problem."""
     import msgpack
 
     def write(name, obj=None, raw=None):

@@ -334,6 +334,22 @@ for extra in (dict(prescale="device"), dict(upload_format="bgr")):
     built = CoordinateModel(config=DEFAULT_CONFIG.replace(**extra), device="cpu")
     geom = built._geometry((360, 640))
     assert built.upload(rng.integers(0, 256, (2, 360, 640, 3), dtype=np.uint8), geom).shape == (2, 544, 960, 3)
+# the multi-device layer on a one-rank mesh, the .msgpack writer, pitchplot
+# (scipy only) and the time-sharded ball selector
+import tempfile
+from eagle_tpu_torch.models.checkpoint import load_params, save_params
+from eagle_tpu_torch.parallel import mesh as pmesh, timeshard as pts
+from eagle_tpu_torch.pipeline.processor import Processor
+from eagle_tpu_torch.utils.pitchplot import voronoi_polygons
+one = pmesh.make_mesh(device="cpu")
+assert [len(r) for r in MultiClipRunner(plain, mesh=one).run([frames, frames[:2]], 3)] == [3, 2]
+assert pts.halo_exchange_prev(torch.from_numpy(frames), one).shape == frames.shape
+path = save_params({"w": np.ones(3, np.float32)}, tempfile.mkdtemp() + "/w.msgpack")
+assert load_params(path)["w"].shape == (3,)
+assert len(voronoi_polygons([10, 50, 90], [20, 30, 40], [0, 1, 0])[0]) == 2
+balls = [[(10.0 + t, 20.0)] for t in range(12)]
+proc = Processor({0: {}}, frames[:1], 3, device="cpu")
+assert proc.parse_ball_detections_segmented(balls, segments=3) == proc.parse_ball_detections_with_kalman(balls)
 # the checkpoint writers chip_smoke.py uses, and chip_smoke.py itself
 import chip_smoke
 from tests.torch_parity import hrnet_reference_state_dict, yolov8_ultralytics_state_dict

@@ -9,7 +9,10 @@ at every boundary of its columns a lane, on both of its paths (the cost
 staged in shared memory, or read from global memory) and at their edge,
 in its shared-memory-vector instantiation (n > 1024), on matrices whose
 -0.0 and +0.0 tie, its batched launch, all-inf matrices, its input
-checks, and ``masked_assignment`` on the card without a host sync.
+checks, and ``masked_assignment`` on the card without a host sync; the
+multi-device layer: a one-rank NCCL group's runner, gather, halo and
+time-sharded scan, and gloo's host transport between two spawned ranks
+sharing the card.
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -495,3 +498,97 @@ def test_masked_assignment_on_the_card_makes_no_host_sync(dev):
     want_m, want_c = lap.masked_assignment(*(a.cpu() for a in args), 0.8)
     assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
     assert (want_m >= 0).sum() >= 5
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on the card (eagle_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+
+def _world_of_one(tmp_path, backend: str):
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    return dist
+
+
+def test_a_world_of_one_under_nccl_equals_the_single_device_runner(dev, tmp_path):
+    """``MultiClipRunner`` over ``make_mesh()`` of a one-rank NCCL group (its
+    clips gathered by NCCL's ``all_gather``) equals the runner on the card
+    without a process group, on oracle clips of 24 and 16 frames."""
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.parallel.mesh import make_mesh
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
+
+    frames, kp_fn, det_fn = _panned_clip(40)
+    clips = [frames[:24], frames[24:]]
+    cfg = DEFAULT_CONFIG.replace(chunk_frames=16)
+    want = MultiClipRunner(CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")).run(
+        clips, 8, num_keypoint_detection=2)
+    dist = _world_of_one(tmp_path, "nccl")
+    try:
+        mesh = make_mesh()
+        assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", torch.cuda.current_device()))
+        model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
+        launches = of.launches
+        got = MultiClipRunner(model, mesh=mesh).run(clips, 8, num_keypoint_detection=2)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert got == want and of.launches > launches
+    assert sum(len(fr["Keypoints"]) for r in got for fr in r.values()) > 4 * len(frames)
+
+
+def test_gather_and_halo_on_cuda_tensors_under_nccl(dev, tmp_path):
+    """At one rank under NCCL: ``gather_batch`` of a CUDA tensor (an NCCL
+    ``all_gather``) gives it back on the card; the halo sends nothing and
+    gives the frames shifted by one, frame 0 repeated; the time-sharded scan
+    over the one rank equals ``scan_chunk``."""
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
+    from eagle_tpu_torch.parallel.timeshard import halo_exchange_prev, timesharded_keypoint_scan
+    from eagle_tpu_torch.pipeline import temporal
+
+    from .torch_parity import time_inputs
+
+    frames_np, kp_fn, _ = _panned_clip(12)
+    dist = _world_of_one(tmp_path, "nccl")
+    try:
+        mesh = make_mesh()
+        x = torch.arange(24, dtype=torch.float32, device=dev).reshape(6, 4)
+        got = gather_batch(shard_batch(x, mesh), mesh)
+        assert got.device == x.device and torch.equal(got, x)
+        np.testing.assert_array_equal(gather_batch(x.cpu().numpy(), mesh), x.cpu().numpy())
+        frames = of.upload_frames(frames_np, dev)
+        prev = halo_exchange_prev(frames, mesh)
+        assert torch.equal(prev[1:], frames[:-1]) and torch.equal(prev[0], frames[0])
+        kp, valid = kp_fn(frames_np)
+        mem_kp, mem_valid = kp.astype(np.float32), valid.copy()
+        mem_valid[np.arange(12) % 4 != 0] = False
+        xs = time_inputs(frames_np, mem_kp, mem_valid, 4, 4)
+        xs = xs._replace(**{k: v.to(dev) for k, v in xs._asdict().items() if isinstance(v, torch.Tensor)})
+        xs = xs._replace(frame_bgr=frames, prev_frame_bgr=prev)
+        cfg = DEFAULT_CONFIG
+        _, want = temporal.scan_chunk(temporal.init_carry(cfg, dev), xs, cfg, 0)
+        for a, b in zip(timesharded_keypoint_scan(mesh, cfg, 0, xs), (want.kp_xy, want.kp_valid, want.H, want.H_ok)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+    assert int(want.kp_valid.sum()) > 2 * len(frames_np)  # six keypoints that pan out of view
+
+
+def test_gloo_host_transport_under_two_spawned_ranks(dev, tmp_path):
+    """Two gloo ranks spawned on the one card: the ring shift of CUDA
+    tensors (sent through host copies), the halo and ``gather_batch`` (gloo's
+    CUDA ``all_gather``) give the same bytes as the frames themselves."""
+    from .torch_parity import gloo_card_rank
+
+    torch.multiprocessing.spawn(gloo_card_rank, args=(2, str(tmp_path / "store"), str(tmp_path)), nprocs=2, join=True)
+    frames = torch.arange(8 * 4 * 6 * 3, dtype=torch.int64).remainder(251).to(torch.uint8).reshape(8, 4, 6, 3)
+    want_halo = torch.cat([frames[:1], frames[:3], frames[3:4], frames[4:7]])
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert torch.equal(got["shift"], torch.full((3,), 1 - r, dtype=torch.float32))
+        assert got["shift_device"].startswith("cuda")
+        assert torch.equal(got["gather"], frames) and torch.equal(got["halo"], want_halo)

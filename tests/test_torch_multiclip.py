@@ -23,6 +23,7 @@ from eagle_tpu.parallel.mesh import make_mesh
 from eagle_tpu.pipeline.coordinate_model import CoordinateModel as JModel
 from eagle_tpu.pipeline.multiclip import MultiClipRunner as JRunner
 from eagle_tpu.utils.synthetic import make_scene
+from eagle_tpu_torch.parallel.mesh import Mesh
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel as TModel
 from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
 from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner as TRunner
@@ -92,7 +93,15 @@ def test_clip_batched_runner_runs_on_demand_rounds(case):
 
 
 def test_runner_takes_one_device_and_rejects_a_mesh_of_more():
+    """The runner takes a mesh of one rank (a one-device sequence, or none)
+    or of N ranks (``make_mesh``'s, on the model's device; the multi-rank
+    runs are tests/test_torch_multiclip_mesh.py); a bare sequence of more
+    than one device, with no process group, raises and names ``make_mesh``
+    (each rank of a larger mesh is a process of its own)."""
     model = TModel(keypoint_fn=lambda b: None, detector_fn=lambda b: None, device="cpu")
-    TRunner(model, mesh=[torch.device("cpu")])
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    assert TRunner(model, mesh=[torch.device("cpu")]).mesh.size == 1
+    assert TRunner(model).mesh.size == 1
+    ranks = Mesh(None, "gloo", 0, 0, 3, (0, 1, 2), (3,), ("data",), torch.device("cpu"))
+    assert TRunner(model, mesh=ranks).mesh.size == 3
+    with pytest.raises(ValueError, match="make_mesh"):
         TRunner(model, mesh=[torch.device("cpu"), torch.device("cpu")])

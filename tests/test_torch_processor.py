@@ -210,8 +210,9 @@ def test_processor_needs_the_card_or_an_explicit_cpu():
         pytest.skip("a CUDA card is present; the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         TProcessor({}, [], 24)
-    with pytest.raises(NotImplementedError, match="team_assign"):
-        TProcessor({}, [], 24, config=TConfig(team_assign="host"), device="cpu")
+    TProcessor({}, [], 24, config=TConfig(team_assign="host"), device="cpu")  # sklearn votes on the host
+    with pytest.raises(ValueError, match="team_assign"):
+        TProcessor({}, [], 24, config=TConfig(team_assign="gpu"), device="cpu")
 
 
 def test_votes_in_batches_equal_one_batch(monkeypatch):
