@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero, nothing is caught):
 
-1. build: the CUDA kernels (nvcc, sm_90a: the LK flow and the JV
-   assignment) and the host C++ (g++: the prescale and the float64 JV), in
-   parallel, from the sources in this checkout;
+1. build: the CUDA kernels (nvcc, sm_90a: the LK flow, the JV
+   assignment, the auction and NMS's suppression) and the host C++ (g++:
+   the prescale and the float64 JV), in parallel, from the sources in this
+   checkout;
 2. kernel: every kernel of the main path against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes -- the LK
    flow kernel, the whole flow step in one launch, at K = 57 points on the
@@ -24,9 +25,28 @@ Phases (any failure exits non-zero, nothing is caught):
    of 1280x720 at 24 fps with seeded full-width YOLOv8-l (960) and
    HRNet-W48 (540x960) in bfloat16, the YOLO class bias tuned to a
    broadcast-like detection count; the launch counters are zeroed just
-   before and read just after, and every kernel must have launched; the
-   output must hold one dict per frame with the four keys; the bf16
-   models must agree with their float32 selves on one batch;
+   before and read just after, and every kernel must have launched (the
+   auction 3 times a temporal step, its device-side round tally read
+   after a synchronize, NMS once a 16-frame detector batch); the output
+   must hold one dict per frame with the four keys; the bf16 models must
+   agree with their float32 selves on one batch;
+4b. loops (the kernel phase's second half, after the slice: it needs the
+   slice model): the device loops' kernels against their plain versions on
+   the card.  The auction kernel (one block a matrix, every round inside
+   it) on the tracker's own solves, recorded in a run of the slice model
+   on 16 frames (93 matrices of 64 x 192, all three stages), on the
+   ``utils/kernel_cases.py`` kinds (sparse, random, tied, a tied block,
+   infeasible rows) at 64 x 128, R > C and R < C, a tied block capped at
+   1, 2 and 3 rounds, and one B = 4 launch against 4 single launches:
+   matches and round counts bit-equal to ``auction_rounds_plain`` on CPU
+   copies; ``masked_auction`` makes no host sync; device ms a launch (the
+   profiler's trace; one device kernel a call) by stage with its rounds,
+   the eager loop's ms on the same CUDA tensors and the bound.  The NMS
+   kernel (one block an image) on the slice's 16-frame detector batch (16
+   x 512) and the kernel_cases images (IoU exactly at the threshold and
+   one float32 step above, a 12-link chain, an empty and an overflowing
+   image): keep bit-equal to ``suppress_plain``; ``batched_nms`` makes no
+   host sync; device ms a launch, the plain version's ms and the bound;
 5. process: the CLI's function (``eagle_tpu_torch.main.run``) from 48
    host frames of a match (the slice's frames with 22 players in two kits
    and a ball drawn over them, oracle models that know them) to the four
@@ -52,7 +72,8 @@ Phases (any failure exits non-zero, nothing is caught):
    (c) the full-width 48-frame slice with bf16 OSNet (512-d embeddings of
    the first 64 detection slots) and the features GMC, launch counters
    zeroed just before and read just after (K = 57 and K = 240 apart),
-   with its rate and stage milliseconds, ``reid`` among them; (d) the bf16
+   with its rate and stage milliseconds, ``reid`` among them, and the
+   auction's and NMS's launches and device rounds; (d) the bf16
    OSNet's embeddings against its float32 self on one piece;
 7. exact (after the tracker phase): the JV assignment kernel behind
    ``TrackerConfig.assignment="exact"``: (a) on tracking-like matrices
@@ -71,10 +92,11 @@ Phases (any failure exits non-zero, nothing is caught):
    oracle clip with the exact solver (24 track and 32 detection slots),
    card == plain CPU path, 3 launches a temporal step; (c) the full-width
    slice with the exact solver on the slice model's weights: fps, stage
-   ms, launches (3 a step, shared path, no auction round), then both
-   solvers' slices under the profiler (the temporal step's blocking calls
-   and idle share, the JV kernels' device time) and the share of frames
-   whose track ids differ from the auction slice's;
+   ms, launches (3 a step, shared path, no auction launch), then both
+   solvers' slices under the profiler (the temporal step's and the
+   detector stage's blocking calls and idle shares, the launches and
+   device time of the JV, auction and NMS kernels) and the share of
+   frames whose track ids differ from the auction slice's;
 8. stream: (a) the 24-frame oracle clip streamed on the card at
    ``chunk_frames=16`` in ragged segments (blocks of 16 + 8) equals the
    card's one-shot run exactly and the port's CPU stream within the REF_*
@@ -82,8 +104,9 @@ Phases (any failure exits non-zero, nothing is caught):
    full-width slice's 48 frames streamed with the slice model's weights in
    segments 10 + 23 + 15 (blocks of 32 + 16) equal the slice phase's
    one-shot result exactly, no frame staged, launch counters zeroed just
-   before and read just after (its fps, stage ms, launches and the
-   on-demand rounds of both runs printed); (c) the peak device memory of
+   before and read just after (its fps, stage ms, launches, the auction's
+   device rounds and the on-demand rounds of both runs printed); (c) the
+   peak device memory of
    the same model streaming 96 frames in blocks of 32 must be within 10%
    of its 48-frame stream's (printed beside the 48-frame one-shot's);
    (d) ``serve_clips(overlap=True)`` over three 16-frame clips of the
@@ -102,11 +125,13 @@ Phases (any failure exits non-zero, nothing is caught):
    and the bound; (b) ``MultiClipRunner`` on the flattened path with the
    slice's weights, make_frames(96) split as [48, 48] and [48, 40]: each
    clip equals its own ``get_coordinates`` on the card exactly, fps against
-   the sequential runs; (c) on the clip-batched path with oracle models on
+   the sequential runs, the auction and NMS kernels launched; (c) on the
+   clip-batched path with oracle models on
    raw frames, clips [24, 24, 20, 12], the default tracker and the features
    GMC: each clip equals its own run on the card, the card run equals the
    CPU's, one batched launch a step for all clips (counters zeroed just
-   before and read just after), fps against sequential;
+   before and read just after), the auction launched every step and NMS
+   never (oracle detections), fps against sequential;
 10. prescale: the slice model on 640x360 and 854x480 frames (the 4:2:0
    letterbox outside the fused kernel's envelope), their canvases equal to
    the CPU host path's bytes; ``prescale="device"`` on the slice's frames
@@ -117,7 +142,8 @@ Phases (any failure exits non-zero, nothing is caught):
    one-rank NCCL group: ``MultiClipRunner(model, mesh=make_mesh())`` on the
    slice's weights over make_frames(96) as clips [48, 48] (its results
    gathered by NCCL's ``all_gather``) equals the runner without a process
-   group exactly, flow launches counted around it; the time-sharded
+   group exactly, flow, auction and NMS launches counted around it; the
+   time-sharded
    keypoint scan of the slice's 48 frames (oracle keypoints every 8
    frames, a homography every 24, the oracle players) over the one rank
    equals ``scan_chunk`` (the one-rank identity: at size 1 the halo and the
@@ -136,7 +162,8 @@ Phases (any failure exits non-zero, nothing is caught):
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
-   ``_tracker`` appended.
+   ``_tracker`` appended; each prints the temporal step's and the detector
+   stage's blocking calls.
 
 The frames are made here from a fixed seed with numpy/scipy: a green
 pitch texture with white lines, panned 1-2 px per frame, whose line
@@ -350,7 +377,7 @@ def phase_build() -> str:
     returns the CUDA kernels' compiler output (``-Xptxas -v``; empty for a
     library already built in this checkout)."""
     from eagle_tpu_torch import native
-    from eagle_tpu_torch.ops import assignment, optical_flow
+    from eagle_tpu_torch.ops import assignment, nms, optical_flow
 
     t0 = time.perf_counter()
     errors = []
@@ -366,6 +393,8 @@ def phase_build() -> str:
         threading.Thread(target=run, args=(native._load_lapjv,)),
         threading.Thread(target=run, args=(lambda: optical_flow.build(verbose=True),)),
         threading.Thread(target=run, args=(lambda: assignment.build(verbose=True),)),
+        threading.Thread(target=run, args=(lambda: assignment.build_auction(verbose=True),)),
+        threading.Thread(target=run, args=(lambda: nms.build(verbose=True),)),
     ]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):  # the verbose builds print their compiler output
@@ -445,12 +474,13 @@ def flow_input(frames, pts):
 TRACE_ATTEMPTS = 3
 
 
-def traced_flow(of, call, reps: int, kernel: str = "lk_flow") -> dict:
+def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "launches") -> dict:
     """``reps`` calls of ``call()`` under ``torch.profiler``: the device
     operations in the trace (kernels, copies and sets), the durations (us)
     of the flow kernels among them (every kernel whose name holds
     ``kernel``), and the launches the wrapper module ``of`` counted
-    meanwhile (``lap_jv``: the assignment module and its kernel).  On the H100 the profiler
+    meanwhile in its attribute ``count`` (``lap_jv``: the assignment
+    module and its kernel).  On the H100 the profiler
     has been seen to miss one launch of 20, and once to trace no device
     activity at all in a session: a trace that holds fewer flow kernels
     than were launched is taken again, up to TRACE_ATTEMPTS sessions, and
@@ -460,12 +490,12 @@ def traced_flow(of, call, reps: int, kernel: str = "lk_flow") -> dict:
 
     best: dict | None = None
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        launches0 = of.launches
+        launches0 = getattr(of, count)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
-        launched = of.launches - launches0
+        launched = getattr(of, count) - launches0
         ops = [e for e in trace_events(prof) if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         flow = [e["dur"] for e in ops if e["cat"] == "kernel" and kernel in e["name"]]
         if best is None or len(flow) > len(best["flow"]):
@@ -849,8 +879,8 @@ def phase_slice(frames):
     import torch
 
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import assignment, optical_flow
-    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
+    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.pipeline.coordinate_model import PIECE, CoordinateModel, StageTimer
 
     cfg = DEFAULT_CONFIG
     assert cfg.detector.variant == "large_hd" and cfg.detector.image_size == 960
@@ -871,13 +901,14 @@ def phase_slice(frames):
 
     timer = StageTimer(model.device, sync=True)
     optical_flow.launches = 0
-    assignment.rounds = 0
+    zero_loop_counts()
+    stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = optical_flow.launches
-    rounds = assignment.rounds
+    loops, stepped = loop_counts(), model.frames_stepped - stepped0
 
     if sorted(res) != list(range(len(frames))):
         fail("get_coordinates did not return one entry per frame")
@@ -889,6 +920,9 @@ def phase_slice(frames):
                 fail(f"frame {i} keypoint {name} is not finite")
     if launches < len(frames) - 1:
         fail(f"lk_flow kernel launched {launches} times for {len(frames)} frames")
+    if loops["auction"] != 3 * stepped or not loops["rounds"] or loops["nms"] != -(-len(frames) // PIECE):
+        fail(f"the slice's {stepped} temporal steps over {len(frames)} frames: {loop_line(loops)}; expected 3 "
+             f"auction launches a step and one nms launch a {PIECE}-frame detector batch")
     n_kp = np.mean([len(fr["Keypoints"]) for fr in res.values()])
     n_h = sum(fr["Boundaries"][0] is not None for fr in res.values())
     n_obj = np.mean([sum(len(o) for o in fr["Coordinates"].values()) for fr in res.values()])
@@ -897,12 +931,358 @@ def phase_slice(frames):
     n_valid, n_kept = detections_per_frame(model, model.upload(frames, model._geometry(FRAME_HW)))
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"slice: {len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.2f} fps; "
-          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}; auction rounds {rounds}")
+          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}; {loop_line(loops)} for {stepped} temporal "
+          f"steps")
     print(f"slice traffic, means a frame: detections entering the tracker {n_valid:.2f} "
           f"(kept at the keep threshold {n_kept:.2f}); objects reported {n_obj:.2f}, of which "
           f"tracked players and goalkeepers {n_tracked:.2f}; keypoints {n_kp:.2f}; frames with "
           f"boundaries {n_h}")
-    return launches, model, res
+    return launches, model, res, loops
+
+
+# ---------------------------------------------------------------------------
+# the device loops: the auction kernel and the NMS kernel
+# ---------------------------------------------------------------------------
+
+
+def zero_loop_counts() -> None:
+    """Zeroes the auction's and NMS's launch counts and the auction's
+    device-side round tallies."""
+    from eagle_tpu_torch.ops import assignment, nms
+
+    assignment.auction_launches = 0
+    assignment.auction_launches_by_path = {"shared": 0, "global": 0}
+    assignment.reset_rounds()
+    nms.launches = 0
+
+
+def loop_counts() -> dict:
+    """After a synchronize: the auction's launches and the bidding rounds
+    its kernels ran (the device tally), NMS's launches."""
+    import torch
+
+    from eagle_tpu_torch.ops import assignment, nms
+
+    torch.cuda.synchronize()
+    return {"auction": assignment.auction_launches, "rounds": assignment.device_rounds(), "nms": nms.launches}
+
+
+def loop_line(c: dict) -> str:
+    return f"auction launches {c['auction']} ({c['rounds']} device rounds), nms launches {c['nms']}"
+
+
+def host_syncs(call) -> int:
+    """The synchronising operations of one ``call()``
+    (``torch.cuda.set_sync_debug_mode("warn")``); fails if the mode
+    reports nothing on a known sync."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            call()
+        with warnings.catch_warnings(record=True) as control:
+            warnings.simplefilter("always")
+            bool(torch.ones((), device="cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not any("synchroniz" in str(w.message) for w in control):
+        fail("torch.cuda.set_sync_debug_mode did not report a host sync: the sync count would read nothing")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def record_loop_inputs(model, frames) -> tuple[list, list]:
+    """One ``get_coordinates`` of the model on ``frames`` with the
+    tracker's solver calls and the detector's suppression calls recorded:
+    ([(stage, cost, row_valid, col_valid, gate)] in call order, three a
+    temporal step; [(shifted, valid, iou threshold)], one a detector
+    batch), copies on the card."""
+    from eagle_tpu_torch.ops import nms
+    from eagle_tpu_torch.track import botsort
+
+    solves, batches = [], []
+    real_solver, real_suppress = botsort.masked_auction, nms.suppress
+
+    def solver(cost, rows, cols, gate, *a, **kw):
+        solves.append((len(solves) % 3 + 1, cost.clone(), rows.clone(), cols.clone(), gate))
+        return real_solver(cost, rows, cols, gate, *a, **kw)
+
+    def suppress(shifted, valid, thr):
+        batches.append((shifted.clone(), valid.clone(), thr))
+        return real_suppress(shifted, valid, thr)
+
+    botsort.masked_auction, nms.suppress = solver, suppress
+    try:
+        model.get_coordinates(frames, FPS, num_keypoint_detection=3)
+    finally:
+        botsort.masked_auction, nms.suppress = real_solver, real_suppress
+    return solves, batches
+
+
+def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20) -> tuple[float, str]:
+    """Device time of one launch from the profiler's trace over ``reps``
+    calls (:func:`traced_flow`), or by CUDA events where no session traced
+    one; fails unless each call launched the kernel once (``mod``'s
+    ``count``) and ran no other device operation."""
+    tr = traced_flow(mod, call, reps, kernel=kernel, count=count)
+    if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > reps:
+        fail(f"{reps} {what} calls launched the kernel {tr['launched']} times and traced "
+             f"{len(tr['ops']) - len(tr['flow'])} other device operations")
+    if tr["flow"]:
+        return sum(tr["flow"]) / len(tr["flow"]) / 1e3, f"profiler, {len(tr['flow'])} of {reps} traced, one kernel a call"
+    return cuda_ms(call, reps=reps), f"CUDA events (no {kernel} kernel traced in {tr['sessions']} sessions)"
+
+
+def auction_against_plain(benefit, row_ok, c: int, iterations: int, what: str) -> tuple[int, list]:
+    """One auction launch over CUDA tensors against ``auction_rounds_plain``
+    on CPU copies: fails unless it launched once and the matches and round
+    counts are bit-equal.  Returns (the rounds, the bidding rows of each
+    round)."""
+    import torch
+
+    from eagle_tpu_torch.ops import assignment as lap
+
+    before = lap.auction_launches
+    got_m, got_r = lap.auction_rounds(benefit, row_ok, c, iterations)
+    torch.cuda.synchronize()
+    if lap.auction_launches != before + 1:
+        fail(f"auction_rounds on CUDA tensors ({what}) did not launch the kernel once")
+    record: list = []
+    want_m, want_r = lap.auction_rounds_plain(benefit.cpu(), row_ok.cpu(), c, iterations, record=record)
+    if not torch.equal(got_m.cpu(), want_m):
+        bad = torch.nonzero(got_m.cpu() != want_m).flatten()[:10].tolist()
+        fail(f"the auction kernel's matches differ from the plain version's ({what}) at {bad}")
+    if not torch.equal(got_r.cpu(), want_r):
+        fail(f"the auction kernel ran {got_r.tolist()} rounds, the plain version {want_r.tolist()} ({what})")
+    return int(want_r.sum()), record
+
+
+def auction_bound(b: int, r: int, ctot: int, bidding: int) -> tuple[float, float, float, str]:
+    """(bytes ms, operations ms, bound ms, what bounds it) of B auctions
+    over (R, C + R) benefits whose rounds had ``bidding`` bidding rows in
+    all: the benefit and row_ok read once, the matches (int64) and rounds
+    written once; 3 float32 instructions a column for each bidding row a
+    round (the subtraction of the price, the compare with the best, the
+    maximum for the second)."""
+    nbytes = b * (r * ctot * 4 + r + r * 8 + 4)
+    ops = 3 * ctot * bidding
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
+    return t_bytes, t_ops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def auction_kernel(solves: list) -> dict:
+    """The auction kernel on the card: (a) every recorded tracker solve
+    (the three stages' 64 x 192 benefits), (b) the kernel_cases kinds at
+    64 x 128, R > C and R < C, (c) the cap at 1-3 rounds on a tied block,
+    (d) one B = 4 launch over four stage-1 benefits against 4 single
+    launches, all against the plain version bit for bit; no host sync in
+    ``masked_auction``; device ms a launch by stage, rounds a launch, the
+    plain version's ms on the same CUDA tensors, the bound.  Returns the
+    auction entry."""
+    import torch
+
+    from eagle_tpu_torch.ops import assignment as lap
+    from eagle_tpu_torch.utils.kernel_cases import AUCTION_KINDS, auction_case
+
+    def inputs(cost, rows, cols, gate):
+        feas = rows[:, None] & cols[None, :] & (cost <= gate)
+        return lap.auction_benefit(cost, feas, gate, max_cardinality=False)
+
+    counts0 = lap.auction_launches, dict(lap.auction_launches_by_path)
+    tracked = [(st, *inputs(cost, rows, cols, gate), cost.shape[1]) for st, cost, rows, cols, gate in solves]
+    r, ctot = tracked[0][1].shape
+    if lap.auction_path(r, ctot) != "shared":
+        fail(f"the auction at R = {r}, C + R = {ctot} does not stage its benefit in shared memory")
+    per_stage = {1: [0, 0, 0], 2: [0, 0, 0], 3: [0, 0, 0]}  # launches, rounds, bidding rows
+    for k, (st, ben, ok, c) in enumerate(tracked):
+        done, record = auction_against_plain(ben, ok, c, 512, f"tracker solve {k}, stage {st}")
+        per_stage[st][0] += 1
+        per_stage[st][1] += done
+        per_stage[st][2] += sum(record)
+    print(f"kernel auction: {len(tracked)} tracker solves ({r} x {ctot}, {len(tracked) // 3} temporal steps) == plain "
+          f"bit for bit (matches and rounds); launches, rounds, bidding rows by stage {json.dumps(per_stage)}")
+
+    cases = 0
+    for kind in AUCTION_KINDS:
+        for rr, cc in ((64, 128), (20, 12), (12, 20)):
+            cost, rows, cols, gate = (torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a
+                                      for a in auction_case(kind, rr, cc, SEED + rr))
+            ben, ok = inputs(cost, rows, cols, gate)
+            auction_against_plain(ben, ok, cc, 512, f"{kind} {rr} x {cc}")
+            cases += 1
+            if kind == "tied_block" and (rr, cc) == (20, 12):
+                for cap in (1, 2, 3):
+                    done, _ = auction_against_plain(ben, ok, cc, cap, f"{kind} {rr} x {cc}, cap {cap}")
+                    if done != cap:
+                        fail(f"the tied block ran {done} rounds under a cap of {cap}")
+                    cases += 1
+    stage1 = [(ben, ok) for st, ben, ok, _ in tracked if st == 1][:4]
+    ben4, ok4 = torch.stack([b for b, _ in stage1]), torch.stack([o for _, o in stage1])
+    c = ctot - r
+    batched, rounds4 = lap.auction_rounds(ben4, ok4, c)
+    singles = [lap.auction_rounds(ben4[k], ok4[k], c) for k in range(4)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(batched[k], singles[k][0]) and int(rounds4[k]) == int(singles[k][1]) for k in range(4)):
+        fail("the batched auction launch over 4 matrices differs from 4 single launches")
+    auction_against_plain(ben4, ok4, c, 512, "B = 4")
+    cost, rows, cols, gate = solves[0][1:]
+    syncs = host_syncs(lambda: lap.masked_auction(cost, rows, cols, gate))
+    if syncs:
+        fail(f"masked_auction on the card synchronised with the host {syncs} times")
+    print(f"kernel auction: {cases} kernel_cases matrices (every kind at 64 x 128, 20 x 12, 12 x 20; a tied block "
+          f"capped at 1, 2, 3 rounds) and one B = 4 launch == plain and == 4 single launches; masked_auction "
+          f"{syncs} host syncs")
+
+    # times: the three stages of the last recorded step, each its own matrix
+    entry_stages = {}
+    for st, ben, ok, c in tracked[-3:]:
+        ms, how = kernel_ms(lap, lambda: lap.auction_rounds(ben, ok, c), "auction_launches", "auction",
+                            f"auction_rounds (stage {st})")
+        done, record = auction_against_plain(ben, ok, c, 512, f"timed stage {st}")
+        plain = cuda_ms(lambda: lap.auction_rounds_plain(ben, ok, c), reps=5, warmup=1)
+        t_bytes, t_ops, bound, by = auction_bound(1, r, ctot, sum(record))
+        print(f"kernel auction stage {st}: {ms:.4f} ms device time a launch ({how}), {done} rounds "
+              f"({sum(record)} bidding rows); plain (the eager loop on the card, a host sync a round) {plain:.4f} ms; "
+              f"needs {r * ctot * 4 + r + r * 8 + 4} B = {t_bytes * 1e3:.4f} us and {3 * ctot * sum(record)} f32 "
+              f"instructions = {t_ops * 1e3:.5f} us -> bound {bound * 1e3:.4f} us by {by}, launch {ms / bound:.0f}x "
+              f"over it")
+        entry_stages[str(st)] = {"ms": ms, "rounds": done, "bidding_rows": sum(record), "plain_ms": plain,
+                                 "bound_ms": bound, "bound_by": by}
+    lap.auction_launches, lap.auction_launches_by_path = counts0  # comparison launches are not main-path launches
+    mean = {k: sum(v[k] for v in entry_stages.values()) / 3 for k in ("ms", "plain_ms", "bound_ms")}
+    return {
+        "name": "auction",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/auction.cu",
+        "replaces": "eagle_tpu/ops/assignment.py:207 (auction_assignment's rounds, XLA while_loop)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": mean["ms"],
+        "plain_ms": mean["plain_ms"],
+        "bound_ms": mean["bound_ms"],
+        "bound_by": entry_stages["1"]["bound_by"],
+        "library_ms": None,
+        "shape": [r, ctot],
+        "stages": entry_stages,
+        "tracker_solves": {str(k): v for k, v in per_stage.items()},
+    }
+
+
+def nms_bound(valid, k: int) -> tuple[float, float, float, str, int]:
+    """(bytes ms, operations ms, bound ms, what bounds it, pairs) of the
+    suppression of B images of k candidates whose valid ones number v_b:
+    the boxes and valid read once and keep written once; 18 float32
+    instructions an IoU of each pair i < j of valid candidates (4 min /
+    max, 2 subtractions, 2 clamps, 3 products, 3 subtractions for the
+    area, an addition and a subtraction for the union, the clamp and the
+    division; the compare)."""
+    v = valid.sum(dim=1).cpu().numpy().astype(np.int64)
+    pairs = int((v * (v - 1) // 2).sum())
+    b = valid.shape[0]
+    nbytes = b * k * (16 + 1 + 1)
+    ops = 18 * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
+    return t_bytes, t_ops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", pairs
+
+
+def nms_kernel(batches: list) -> dict:
+    """The NMS kernel on the card: the slice's 16-frame detector batch and
+    the kernel_cases images (IoU exactly at the threshold and one float32
+    step above, a 12-link chain, an empty and an overflowing image) at k =
+    512, keep bit-equal to ``suppress_plain`` on CPU copies; no host sync
+    in ``batched_nms``; device ms a launch, the plain version's ms on the
+    same CUDA tensors, the bound.  Returns the nms entry."""
+    import torch
+
+    from eagle_tpu_torch.ops import nms
+    from eagle_tpu_torch.utils.kernel_cases import CHAIN, NMS_KINDS, nms_cases
+
+    launches0 = nms.launches
+    shifted, valid, thr = batches[0]
+
+    def against_plain(s, v, what):
+        before = nms.launches
+        got = nms.suppress(s, v, thr)
+        torch.cuda.synchronize()
+        if nms.launches != before + 1:
+            fail(f"suppress on CUDA tensors ({what}) did not launch the kernel once")
+        want = nms.suppress_plain(s.cpu(), v.cpu(), thr)
+        if not torch.equal(got.cpu(), want):
+            bad = torch.nonzero(got.cpu() != want)[:10].tolist()
+            fail(f"the NMS kernel's keep differs from the plain version's ({what}) at {bad}")
+        return want
+
+    keep = against_plain(shifted, valid, "the slice's detector batch")
+    cases, seen = [], []
+    real = nms.suppress
+
+    def record(s, v, t):
+        seen.append((s, v))
+        return real(s, v, t)
+
+    nms.suppress = record
+    try:
+        for seed in (SEED, SEED + 1):
+            boxes, scores = (torch.from_numpy(a).cuda() for a in nms_cases(seed))
+            nms.batched_nms(boxes, scores, conf_threshold=0.15, iou_threshold=thr, max_det=128, pre_topk=512)
+    finally:
+        nms.suppress = real
+    for k, (s, v) in enumerate(seen):
+        want = against_plain(s, v, f"kernel_cases seed {k}")
+        if want[NMS_KINDS.index("threshold"), :4].tolist() != [True, True, True, False] or want[
+            NMS_KINDS.index("chain"), :CHAIN
+        ].tolist() != [m % 2 == 0 for m in range(CHAIN)]:
+            fail("the kernel_cases threshold pairs or chain did not resolve as built")
+        cases.append(s.shape[0])
+    boxes, scores = (torch.from_numpy(a).cuda() for a in nms_cases(SEED))
+    syncs = host_syncs(lambda: nms.batched_nms(boxes, scores))
+    if syncs:
+        fail(f"batched_nms on the card synchronised with the host {syncs} times")
+    b, k = valid.shape
+    print(f"kernel nms: the slice's detector batch ({b} x {k}, {int(valid.sum())} valid, {int(keep.sum())} kept) and "
+          f"{sum(cases)} kernel_cases images (threshold pairs, a {CHAIN}-link chain, empty, overflow) == plain bit "
+          f"for bit; batched_nms {syncs} host syncs")
+
+    ms, how = kernel_ms(nms, lambda: nms.suppress(shifted, valid, thr), "launches", "nms_suppress", "suppress")
+    plain = cuda_ms(lambda: nms.suppress_plain(shifted, valid, thr), reps=5, warmup=1)
+    t_bytes, t_ops, bound, by, pairs = nms_bound(valid, k)
+    print(f"kernel nms: {ms:.4f} ms device time a launch ({how}); plain (the dense IoU block and the loop on the "
+          f"card, a host sync a pass) {plain:.4f} ms; needs {b * k * 18} B = {t_bytes * 1e3:.4f} us and {18 * pairs} "
+          f"f32 instructions ({pairs} pairs) = {t_ops * 1e3:.4f} us -> bound {bound * 1e3:.4f} us by {by}, launch "
+          f"{ms / bound:.1f}x over it")
+    nms.launches = launches0  # comparison launches are not main-path launches
+    return {
+        "name": "nms",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/nms.cu",
+        "replaces": "eagle_tpu/ops/nms.py:95 (nms's suppression, XLA while_loop)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": [b, k],
+        "pairs": pairs,
+    }
+
+
+def phase_loops(model, frames) -> tuple[dict, dict]:
+    """The two device loops' kernels against their plain versions at the
+    main path's shapes, on the tracker's and the detector's own inputs
+    (recorded in one run of the slice model on the first 16 frames) and on
+    edge cases.  Returns (the auction entry, the nms entry)."""
+    t0 = time.perf_counter()
+    solves, batches = record_loop_inputs(model, frames[:16])
+    if len(solves) < 45 or len(solves) % 3 or not batches:
+        fail(f"the slice model's run on 16 frames made {len(solves)} solver calls and {len(batches)} suppressions")
+    entries = auction_kernel(solves), nms_kernel(batches)
+    print(f"loops: phase wall {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -998,7 +1378,6 @@ def features_gmc_timing(prev, curr) -> tuple[float, int]:
     events over 20 calls) and the synchronising operations of one call
     (``torch.cuda.set_sync_debug_mode``)."""
     import types
-    import warnings
 
     import torch
 
@@ -1016,19 +1395,7 @@ def features_gmc_timing(prev, curr) -> tuple[float, int]:
 
     call()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            call()
-        with warnings.catch_warnings(record=True) as control:
-            warnings.simplefilter("always")
-            bool(torch.ones((), device=dev))
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    if not any("synchroniz" in str(w.message) for w in control):
-        fail("torch.cuda.set_sync_debug_mode did not report a host sync: the sync count would read nothing")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = host_syncs(call)
     return cuda_ms(call, reps=20), syncs
 
 
@@ -1076,7 +1443,6 @@ def tracker_slice(frames, slice_model):
     import torch
 
     from eagle_tpu_torch.models.osnet import embed_boxes
-    from eagle_tpu_torch.ops import assignment
     from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
 
@@ -1089,25 +1455,28 @@ def tracker_slice(frames, slice_model):
 
     timer = StageTimer(model.device, sync=True)
     of.launches, of.launches_by_k = 0, {}
-    assignment.rounds = 0
+    zero_loop_counts()
+    stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n57, n240 = of.launches_by_k.get(57, 0), of.launches_by_k.get(240, 0)
-    rounds = assignment.rounds
+    loops, stepped = loop_counts(), model.frames_stepped - stepped0
     if sorted(res) != list(range(len(frames))) or any(
         set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
     ):
         fail("the tracker's slice did not return one entry per frame with the four keys")
     if "reid" not in timer.seconds or n240 < len(frames) or n57 < len(frames) - 1:
         fail(f"the tracker's slice did not embed or did not run both flows: launches K=57 {n57}, K=240 {n240}")
+    if loops["auction"] != 3 * stepped or not loops["nms"]:
+        fail(f"the tracker's slice: {loop_line(loops)} for {stepped} temporal steps")
     n_tracked = np.mean([len(fr["Coordinates"].get("Player", {})) + len(fr["Coordinates"].get("Goalkeeper", {}))
                          for fr in res.values()])
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"tracker slice: {len(frames)} frames (OSNet-x0.25 bf16, 64 slots, 512-d; features GMC) in {wall:.3f} s "
           f"= {len(frames) / wall:.2f} fps; stage ms {json.dumps(stages)}; lk_flow launches K=57 {n57}, "
-          f"K=240 {n240}; auction rounds {rounds}; tracked players and goalkeepers {n_tracked:.2f} a frame")
+          f"K=240 {n240}; {loop_line(loops)}; tracked players and goalkeepers {n_tracked:.2f} a frame")
 
     geom = model._geometry(FRAME_HW)
     x = model.upload(frames[:16], geom)
@@ -1422,37 +1791,41 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
 
     timer = StageTimer(model.device, sync=True)
     lap.launches, lap.launches_by_path = 0, {"shared": 0, "global": 0}
-    of.launches, lap.rounds = 0, 0
+    of.launches = 0
+    zero_loop_counts()
     stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, shared, rounds, stepped = lap.launches, lap.launches_by_path["shared"], lap.rounds, \
+    launches, shared, loops, stepped = lap.launches, lap.launches_by_path["shared"], loop_counts(), \
         model.frames_stepped - stepped0
     if sorted(res) != list(range(len(frames))) or any(
         set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
     ):
         fail("the exact solver's slice did not return one entry per frame with the four keys")
-    if launches != 3 * stepped or stepped < len(frames) or shared != launches or rounds:
+    if launches != 3 * stepped or stepped < len(frames) or shared != launches or loops["auction"] or not loops["nms"]:
         fail(f"the exact solver's slice: {launches} lap_jv launches ({shared} on the shared path) for {stepped} "
-             f"temporal steps, {rounds} auction rounds; expected 3 a step, all shared, no auction")
+             f"temporal steps, {loop_line(loops)}; expected 3 a step, all shared, no auction launch")
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"exact slice: {len(frames)} frames (DEFAULT_CONFIG, assignment='exact', n = {LAP_N}) in {wall:.3f} s = "
           f"{len(frames) / wall:.2f} fps; stage ms {json.dumps(stages)}; lap_jv launches {launches} for {stepped} "
-          f"temporal steps, auction rounds {rounds}; lk_flow launches {of.launches}")
+          f"temporal steps, {loop_line(loops)}; lk_flow launches {of.launches}")
 
     profiled = {}
     for name, m in (("exact", model), ("auction", slice_model)):
-        lap.rounds = 0
+        zero_loop_counts()
         st, by_kernel = profile_stages(m, frames)
-        jv = [v for k, v in by_kernel.items() if "lap_jv" in k]
-        profiled[name] = (st["temporal"], lap.rounds, sum(ms for _, ms in jv), sum(c for c, _ in jv))
-    for name, (tmp, rounds, jv_ms, jv_n) in profiled.items():
+        kernels = {kn: [v for k, v in by_kernel.items() if kn in k] for kn in ("lap_jv", "auction", "nms_suppress")}
+        profiled[name] = (st, loop_counts(), {kn: (sum(c for c, _ in v), sum(ms for _, ms in v))
+                                              for kn, v in kernels.items()})
+    for name, (st, loops, kernels) in profiled.items():
+        tmp, det = st["temporal"], st["detector"]
         print(f"exact slice, profiled ({name} solver, {len(frames)} frames): temporal {tmp['wall_ms']:.3f} ms, "
               f"{tmp['blocking_calls']} blocking calls, host blocked {tmp['host_blocked_ms']:.3f} ms, device idle "
-              f"{tmp['device_idle_share']:.3f}; auction rounds {rounds}; lap_jv {jv_n} kernels, {jv_ms:.3f} ms of "
-              f"device time")
+              f"{tmp['device_idle_share']:.3f}; detector {det['wall_ms']:.3f} ms, {det['blocking_calls']} blocking "
+              f"calls, device idle {det['device_idle_share']:.3f}; {loop_line(loops)}; kernels traced (count, device "
+              f"ms) {json.dumps({k: [n, round(ms, 3)] for k, (n, ms) in kernels.items()})}")
     differ = sum(
         {c: sorted(o) for c, o in res[i]["Coordinates"].items()}
         != {c: sorted(o) for c, o in slice_res[i]["Coordinates"].items()}
@@ -1728,12 +2101,13 @@ def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
     timer = StageTimer(streamer.device, sync=True)
     streamer.ondemand_rounds = 0
     of.launches, of.staged = 0, 0
+    zero_loop_counts()
     t0 = time.perf_counter()
     res, blocks = stream_run(streamer, [frames[:10], frames[10:33], frames[33:]], num_keypoint_detection=3,
                              timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, staged, rounds = of.launches, of.staged, streamer.ondemand_rounds
+    launches, staged, rounds, loops = of.launches, of.staged, streamer.ondemand_rounds, loop_counts()
     if blocks != [32, 16]:
         fail(f"the slice streamed in blocks of {blocks}, expected [32, 16]")
     if res != one_shot:
@@ -1741,13 +2115,15 @@ def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
         fail(f"the streamed full-width slice differs from its one-shot run at frames {bad[:10]}")
     if staged or launches < len(frames) - 1:
         fail(f"the streamed slice staged {staged} frames and launched the flow kernel {launches} times")
+    if loops["auction"] < len(frames) or not loops["nms"]:
+        fail(f"the streamed slice: {loop_line(loops)}")
     model.ondemand_rounds = 0
     model.get_coordinates(frames, FPS, num_keypoint_detection=3)
     one_rounds = model.ondemand_rounds
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"stream (b): full-width slice, {len(frames)} frames in blocks {blocks} = {len(frames) / wall:.2f} fps "
           f"({wall:.3f} s); == the one-shot slice; stage ms {json.dumps(stages)}; lk_flow launches {launches}; "
-          f"frames staged {staged}; on-demand rounds {rounds} streamed, {one_rounds} one-shot")
+          f"{loop_line(loops)}; frames staged {staged}; on-demand rounds {rounds} streamed, {one_rounds} one-shot")
 
     def peak(fn) -> int:
         torch.cuda.synchronize()
@@ -1774,7 +2150,8 @@ def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
         fail("the 96-frame stream's peak device memory is more than 10% over the 48-frame stream's")
     if grow > 1.05 * 48 * CANVAS_BYTES:
         fail("the one-shot peak grew from 48 to 96 frames by more than the 48 canvases plus 5%")
-    return {"stream_launches": launches, "stream_staged": staged}, {"fps": len(frames) / wall, "peaks": gib}
+    return {"stream_launches": launches, "stream_staged": staged, "stream_loops": loops}, {
+        "fps": len(frames) / wall, "peaks": gib}
 
 
 def stream_serve(frames, pts) -> None:
@@ -2003,11 +2380,12 @@ def multiclip_flattened(model, frames96) -> None:
         spans = [(0, split[0]), (split[0], split[1])]
         torch.cuda.synchronize()
         of.launches, of.launches_by_ck = 0, {}
+        zero_loop_counts()
         t0 = time.perf_counter()
         res = MultiClipRunner(model).run([frames96[a : a + n] for a, n in spans], FPS, num_keypoint_detection=3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = of.launches
+        launches, loops = of.launches, loop_counts()
         seq = 0.0
         for ci, (a, n) in enumerate(spans):
             want, secs = single(a, n)
@@ -2018,9 +2396,11 @@ def multiclip_flattened(model, frames96) -> None:
         n = sum(split)
         if launches < n - len(split):
             fail(f"the flattened multi-clip run launched the flow kernel {launches} times for {n} frames")
+        if loops["auction"] < n or not loops["nms"]:
+            fail(f"the flattened multi-clip run over {n} frames: {loop_line(loops)}")
         print(f"multi-clip (b) flattened, clips {split} at full width: each clip == its single-clip run on the card; "
               f"{n} frames in {wall:.3f} s = {n / wall:.2f} fps, sequential {n / seq:.2f} fps; lk_flow launches "
-              f"{launches}")
+              f"{launches}; {loop_line(loops)}")
 
 
 def multiclip_batched(frames96, pts96) -> dict:
@@ -2056,11 +2436,15 @@ def multiclip_batched(frames96, pts96) -> dict:
         card_model = model("cuda")
         torch.cuda.synchronize()
         of.launches, of.launches_by_ck = 0, {}
+        zero_loop_counts()
         t0 = time.perf_counter()
         card = MultiClipRunner(card_model).run(clips, FPS, num_keypoint_detection=6)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        by_ck, rounds = dict(of.launches_by_ck), card_model.ondemand_rounds
+        by_ck, rounds, loops = dict(of.launches_by_ck), card_model.ondemand_rounds, loop_counts()
+        if loops["auction"] < L or loops["nms"]:
+            fail(f"clip-batched run ({gmc} GMC, oracle detections): {loop_line(loops)}; expected auction launches "
+                 f"every step and no nms launch")
         t0 = time.perf_counter()
         for ci, clip in enumerate(clips):
             if model("cuda").get_coordinates(clip, FPS, num_keypoint_detection=6) != card[ci]:
@@ -2080,7 +2464,7 @@ def multiclip_batched(frames96, pts96) -> dict:
         print(f"multi-clip (c) clip-batched, {gmc} GMC, oracle models, clips {MC_LENS}: each clip == its single-clip "
               f"run on the card, card == CPU; {n} frames in {wall:.3f} s = {n / wall:.2f} fps, sequential "
               f"{n / seq:.2f} fps; batched launches {json.dumps({f'C={c},K={k}': v for (c, k), v in by_ck.items()})}, "
-              f"on-demand rounds {rounds}")
+              f"on-demand rounds {rounds}; {loop_line(loops)}")
         fields["launches"] += n57 + n240
         fields[f"launches_{gmc}"] = {f"C={c},K={k}": v for (c, k), v in by_ck.items()}
     return fields
@@ -2165,11 +2549,14 @@ def multidevice_nccl(model, frames96, frames, pts, work: str) -> dict:
             fail(f"make_mesh under a one-rank NCCL group gave {mesh}")
         torch.cuda.synchronize()
         of.launches = 0
+        zero_loop_counts()
         t0 = time.perf_counter()
         got = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = of.launches
+        launches, loops = of.launches, loop_counts()
+        if not (loops["auction"] and loops["nms"]):
+            fail(f"the runner over a one-rank NCCL mesh: {loop_line(loops)}")
         for ci in range(len(clips)):
             if got[ci] != want[ci]:
                 bad = [i for i in want[ci] if got[ci].get(i) != want[ci][i]]
@@ -2191,7 +2578,7 @@ def multidevice_nccl(model, frames96, frames, pts, work: str) -> dict:
     n = sum(MD_CLIPS_A)
     print(f"multi-device (a) one NCCL rank: MultiClipRunner over make_mesh(), clips {MD_CLIPS_A} at full width, == the "
           f"runner without a process group; {n} frames in {wall:.3f} s = {n / wall:.2f} fps, lk_flow launches "
-          f"{launches}; the time-sharded scan of {len(frames)} frames over the rank == scan_chunk "
+          f"{launches}, {loop_line(loops)}; the time-sharded scan of {len(frames)} frames over the rank == scan_chunk "
           f"({int(seq[1].sum())} valid keypoints, {int(seq[3].sum())} frames with a homography; the one-rank "
           f"identity: no message sent, one cold pass)")
     return {"launches": launches, "seq": [a.cpu().numpy() for a in seq]}
@@ -2459,6 +2846,8 @@ def phase_profile(model, frames, out_path: str) -> None:
         json.dump(summary, f, indent=1)
     print("profile: " + json.dumps({k: {m: round(v, 3) if isinstance(v, float) else v for m, v in st.items()}
                                     for k, st in stages.items()}) + f" (details in {out_path})")
+    print(f"profile: blocking calls in {len(frames)} frames: temporal step {stages['temporal']['blocking_calls']}, "
+          f"detector stage {stages['detector']['blocking_calls']}")
 
 
 def main() -> int:
@@ -2491,7 +2880,10 @@ def main() -> int:
     frames, pts = make_frames(N_FRAMES)
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
-    flow["launches"], model, slice_res = phase_slice(frames)
+    flow["launches"], model, slice_res, slice_loops = phase_slice(frames)
+    auction_entry, nms_entry = phase_loops(model, frames)
+    auction_entry["launches"], nms_entry["launches"] = slice_loops["auction"], slice_loops["nms"]
+    auction_entry["rounds"] = slice_loops["rounds"]
     tracker_fields, tracker = phase_tracker(frames, pts, model)
     flow.update(tracker_fields)
     lap_entry = phase_exact(frames, pts, model, slice_res, build_log)
@@ -2505,7 +2897,7 @@ def main() -> int:
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(decoder_probe())
-    print(json.dumps({"kernels": [flow, clips_entry, lap_entry]}))
+    print(json.dumps({"kernels": [flow, clips_entry, lap_entry, auction_entry, nms_entry]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -7,7 +7,12 @@ counterpart of ``eagle_tpu/ops/assignment.py``).
   row's best and second-best columns are its first and second maxima by
   lower index (``jax.lax.top_k``), and a column takes the first highest bid
   (``argmax``).  The loop stops once no row is bidding, which is
-  bit-identical to running every round.
+  bit-identical to running every round.  The set-up is tensor code; the
+  rounds (:func:`auction_rounds`) are one launch of the hand-written
+  kernel ``csrc/auction.cu`` on CUDA tensors (one block a matrix, every
+  round inside it, no host sync) and :func:`auction_rounds_plain` on CPU
+  tensors, whose exit test syncs once a round.  Both give the same matches
+  and round counts, bit for bit.
 - The exact Jonker-Volgenant solver behind ``TrackerConfig.assignment=
   "exact"`` (:func:`solve_lap`, :func:`masked_assignment`, lapjv's
   cost-limit objective).  On CUDA tensors a solve is one launch of the
@@ -30,48 +35,122 @@ import torch.nn.functional as F
 from eagle_tpu_torch.native import build_library
 from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
 
-#: auction rounds run; each ends in one host sync, the loop's exit test
+#: bidding rounds run by :func:`auction_rounds_plain` (CPU tensors); the
+#: kernel's rounds go to a device-side tally (:func:`device_rounds`)
 rounds = 0
+#: launches of the auction kernel (one per :func:`auction_rounds` call on
+#: CUDA tensors)
+auction_launches = 0
+#: the same launches by path: the benefit staged in shared memory, or read
+#: from global memory (a matrix too large for the block)
+auction_launches_by_path = {"shared": 0, "global": 0}
+#: the kernel's rounds, one int64 tally a device, added on the card
+_round_tally: dict = {}
+
+_AUCTION_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "auction.cu")
+_AUCTION_LIB = os.path.join(BUILD_DIR, "libauction.so")
+_auction_lock = threading.Lock()
+_auction_lib = None
 
 
-def auction_assignment(
-    cost: torch.Tensor,
-    feasible: torch.Tensor,
+def build_auction(verbose: bool = False) -> str:
+    """Compile ``csrc/auction.cu`` for sm_90a into the build directory
+    (when missing or older than the source, under the build directory's
+    file lock) and return the library path; raises with the compiler's
+    output on failure."""
+    out = build_library(
+        _AUCTION_LIB,
+        _AUCTION_SRC,
+        lambda tmp: [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, _AUCTION_SRC],
+    )
+    if verbose and out:
+        print(out)
+    return _AUCTION_LIB
+
+
+def _load_auction():
+    global _auction_lib
+    with _auction_lock:
+        if _auction_lib is None:
+            lib = ctypes.CDLL(build_auction())
+            lib.auction_path.restype = ctypes.c_int
+            lib.auction_path.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.auction_launch.restype = ctypes.c_int
+            lib.auction_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int),
+            ]
+            _auction_lib = lib
+    return _auction_lib
+
+
+def auction_path(r: int, ctot: int, device=None) -> str:
+    """The path an auction launch over (R, C + R) matrices takes on
+    ``device`` (default: the current CUDA device): "shared" when the
+    benefit and the vectors fit in a block's shared memory, else
+    "global"; raises where the vectors alone do not fit."""
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        code = _load_auction().auction_path(r, ctot)
+    if code < 0:
+        raise RuntimeError(f"auction kernel: cudaError {-code} choosing the path for R = {r}, C + R = {ctot}")
+    return "shared" if code == 1 else "global"
+
+
+def device_rounds() -> int:
+    """The auction kernel's bidding rounds since the last
+    :func:`reset_rounds`, over every device (reads the tallies: a host
+    sync)."""
+    return sum(int(t.item()) for t in _round_tally.values())
+
+
+def reset_rounds() -> None:
+    """Zero :data:`rounds` and the kernel's device-side tallies."""
+    global rounds
+    rounds = 0
+    for t in _round_tally.values():
+        t.zero_()
+
+
+def auction_rounds_plain(
+    benefit: torch.Tensor,
+    row_ok: torch.Tensor,
+    c: int,
     iterations: int = 512,
     eps: float = 1e-3,
-    unmatched_cost: float | None = None,
-    max_cardinality: bool = True,
-) -> torch.Tensor:
-    """Near-optimal assignment; returns (R,) int64 column per row, -1 if
-    unassigned.  ``unmatched_cost`` with ``max_cardinality=False`` is the
-    lapjv cost-limit objective (a row prefers staying unmatched over any
-    pair costing more)."""
-    r, c = cost.shape
-    dev = cost.device
-    ninf = torch.tensor(-torch.inf, dtype=cost.dtype, device=dev)
-    real_benefit = torch.where(feasible, -cost, ninf)
-    row_ok = feasible.any(dim=1)
-    if max_cardinality or unmatched_cost is None:
-        dummy_b = torch.min(torch.where(feasible, -cost, -ninf)) - 1.0
-        dummy_b = torch.where(torch.isfinite(dummy_b), dummy_b, torch.full_like(dummy_b, -2.0))
-    else:
-        dummy_b = torch.tensor(-float(unmatched_cost), dtype=cost.dtype, device=dev)
-    eye = torch.eye(r, dtype=torch.bool, device=dev)
-    dummy = torch.where(eye, torch.where(row_ok, dummy_b, ninf)[:, None], ninf)
-    benefit = torch.cat([real_benefit, dummy], dim=1)  # (R, C+R)
-    ctot = c + r
+    record: list | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: the auction's rounds on each (R, C + R)
+    benefit matrix (the C real columns, then a dummy column a row) of an
+    (R, C + R) or (B, R, C + R) tensor, rows with ``row_ok`` false never
+    bidding.  Returns (match (R,) or (B, R) int64, the real column of each
+    row or -1; rounds () or (B,) int32, the bidding rounds run).  With
+    ``record`` a list, appends the bidding rows of each round run."""
+    global rounds
+    if benefit.dim() == 3:
+        dev = benefit.device
+        out = [auction_rounds_plain(benefit[b], row_ok[b], c, iterations, eps, record) for b in range(benefit.shape[0])]
+        if not out:
+            return torch.empty((0, benefit.shape[1]), dtype=torch.int64, device=dev), torch.empty(
+                (0,), dtype=torch.int32, device=dev)
+        return torch.stack([m for m, _ in out]), torch.stack([n for _, n in out])
+    r, ctot = benefit.shape
+    dev = benefit.device
+    ninf = torch.full((), -torch.inf, dtype=benefit.dtype, device=dev)
     row_ids = torch.arange(r, device=dev)
     col_ids = torch.arange(ctot, device=dev)
 
-    prices = torch.zeros(ctot, dtype=cost.dtype, device=dev)
+    prices = torch.zeros(ctot, dtype=benefit.dtype, device=dev)
     owner = torch.full((ctot,), -1, dtype=torch.int64, device=dev)
-    global rounds
+    done = 0
     for _ in range(iterations):
-        rounds += 1
         assigned = (owner[None, :] == row_ids[:, None]).any(dim=1)
         bidding = row_ok & ~assigned
         if not bool(bidding.any()):
             break
+        done += 1
+        if record is not None:
+            record.append(int(bidding.sum()))
         value = benefit - prices[None, :]
         best_j = torch.argmax(value, dim=1)  # first maximum
         best_onehot = best_j[:, None] == col_ids[None, :]
@@ -87,10 +166,138 @@ def auction_assignment(
         took = col_best > ninf
         owner = torch.where(took, col_winner, owner)
         prices = torch.where(took, col_best, prices)
+    rounds += done
 
     owned = owner[None, :] == row_ids[:, None]
     match = torch.where(owned.any(1), torch.argmax(owned.to(torch.int8), dim=1), torch.full((r,), -1, device=dev))
-    return torch.where(match >= c, torch.full_like(match, -1), match)
+    match = torch.where(match >= c, torch.full_like(match, -1), match)
+    return match, torch.tensor(done, dtype=torch.int32, device=dev)
+
+
+def _check_auction(benefit: torch.Tensor, row_ok: torch.Tensor, c: int, iterations: int) -> None:
+    ok = (
+        benefit.dtype == torch.float32
+        and benefit.dim() in (2, 3)
+        and benefit.is_contiguous()
+        and row_ok.dtype == torch.bool
+        and tuple(row_ok.shape) == tuple(benefit.shape[:-1])
+        and row_ok.is_contiguous()
+        and row_ok.device == benefit.device
+        and c >= 0
+        and benefit.shape[-1] == c + benefit.shape[-2]
+        and iterations >= 0
+    )
+    if not ok:
+        raise ValueError(
+            f"auction_rounds takes a contiguous float32 (R, C + R) or (B, R, C + R) benefit, a contiguous bool "
+            f"row_ok of its leading shape on its device, C >= 0 and iterations >= 0; got {benefit.dtype} "
+            f"{tuple(benefit.shape)} (contiguous={benefit.is_contiguous()}) on {benefit.device}, {row_ok.dtype} "
+            f"{tuple(row_ok.shape)} on {row_ok.device}, C = {c}, iterations = {iterations}"
+        )
+
+
+def auction_rounds_cuda(
+    benefit: torch.Tensor, row_ok: torch.Tensor, c: int, iterations: int = 512, eps: float = 1e-3
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the auction kernel over CUDA tensors as
+    :func:`auction_rounds_plain` takes them: (match, rounds), what the
+    plain version gives, left on the card; the rounds are also added to
+    the device's tally.  Raises ``ValueError`` on any other input and
+    ``RuntimeError`` when the kernel does not build or launch (the vectors
+    of more than ~14,000 columns do not fit in a block)."""
+    global auction_launches
+    _check_auction(benefit, row_ok, c, iterations)
+    if benefit.device.type != "cuda":
+        raise ValueError(f"the auction kernel needs CUDA tensors, got {benefit.device}")
+    batched = benefit.dim() == 3
+    b = benefit.shape[0] if batched else 1
+    r = benefit.shape[-2]
+    dev = benefit.device
+    match = torch.empty(benefit.shape[:-1], dtype=torch.int64, device=dev)
+    done = torch.empty((b,) if batched else (), dtype=torch.int32, device=dev)
+    if b == 0 or r == 0:
+        return match, done.zero_()
+    lib = _load_auction()
+    tally = _round_tally.get(dev)
+    if tally is None:
+        tally = _round_tally[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    taken = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.auction_launch(
+            benefit.data_ptr(), row_ok.data_ptr(), b, r, benefit.shape[-1], c, iterations,
+            float(np.float32(eps)), match.data_ptr(), done.data_ptr(), tally.data_ptr(), stream,
+            ctypes.byref(taken),
+        )
+    if err != 0:
+        raise RuntimeError(f"auction kernel launch failed at B = {b}, R = {r}, C = {c}: cudaError {err}")
+    auction_launches += 1
+    auction_launches_by_path["shared" if taken.value == 1 else "global"] += 1
+    return match, done
+
+
+def auction_rounds(
+    benefit: torch.Tensor, row_ok: torch.Tensor, c: int, iterations: int = 512, eps: float = 1e-3
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The auction's rounds on each (R, C + R) float32 benefit matrix of a
+    contiguous (R, C + R) or (B, R, C + R) tensor (C real columns, then a
+    dummy column a row; no NaN), rows with ``row_ok`` false never bidding,
+    at most ``iterations`` rounds: (match (R,) or (B, R) int64, the real
+    column of each row or -1; rounds () or (B,) int32).  One launch of the
+    auction kernel on CUDA tensors (raises if it does not build or
+    launch), :func:`auction_rounds_plain` on CPU tensors.  Never reads a
+    device value on the host."""
+    _check_auction(benefit, row_ok, c, iterations)
+    if benefit.device.type == "cpu":
+        return auction_rounds_plain(benefit, row_ok, c, iterations, eps)
+    return auction_rounds_cuda(benefit, row_ok, c, iterations, eps)
+
+
+def auction_benefit(
+    cost: torch.Tensor,
+    feasible: torch.Tensor,
+    unmatched_cost: float | None = None,
+    max_cardinality: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The auction's set-up, tensor code with no host sync: (benefit (R, C +
+    R), the feasible pairs' -cost (else -inf) and a dummy column a row, the
+    price of staying unassigned; row_ok (R,) bool, the rows with a feasible
+    pair).  The dummy lies below every feasible benefit for a
+    maximum-cardinality matching, or at ``-unmatched_cost`` (lapjv's
+    cost-limit objective)."""
+    r, c = cost.shape
+    dev = cost.device
+    ninf = torch.full((), -torch.inf, dtype=cost.dtype, device=dev)
+    real_benefit = torch.where(feasible, -cost, ninf)
+    row_ok = feasible.any(dim=1)
+    if max_cardinality or unmatched_cost is None:
+        dummy_b = torch.min(torch.where(feasible, -cost, -ninf)) - 1.0
+        dummy_b = torch.where(torch.isfinite(dummy_b), dummy_b, torch.full_like(dummy_b, -2.0))
+    else:
+        dummy_b = torch.full((), -float(unmatched_cost), dtype=cost.dtype, device=dev)
+    eye = torch.eye(r, dtype=torch.bool, device=dev)
+    dummy = torch.where(eye, torch.where(row_ok, dummy_b, ninf)[:, None], ninf)
+    return torch.cat([real_benefit, dummy], dim=1), row_ok
+
+
+def auction_assignment(
+    cost: torch.Tensor,
+    feasible: torch.Tensor,
+    iterations: int = 512,
+    eps: float = 1e-3,
+    unmatched_cost: float | None = None,
+    max_cardinality: bool = True,
+) -> torch.Tensor:
+    """Near-optimal assignment; returns (R,) int64 column per row, -1 if
+    unassigned.  ``unmatched_cost`` with ``max_cardinality=False`` is the
+    lapjv cost-limit objective (a row prefers staying unmatched over any
+    pair costing more).  :func:`auction_benefit`, then
+    :func:`auction_rounds`."""
+    r, c = cost.shape
+    if r == 0 or c == 0:  # nothing to match: no round, no launch
+        return torch.full((r,), -1, dtype=torch.int64, device=cost.device)
+    benefit, row_ok = auction_benefit(cost, feasible, unmatched_cost, max_cardinality)
+    return auction_rounds(benefit, row_ok, c, iterations, eps)[0]
 
 
 def masked_auction(

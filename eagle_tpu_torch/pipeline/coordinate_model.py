@@ -86,6 +86,7 @@ from eagle_tpu_torch.ops.preprocess import (
 )
 from eagle_tpu_torch.pipeline import temporal
 from eagle_tpu_torch.pipeline.transfer import drain_together
+from eagle_tpu_torch.utils.logging import log_event
 
 PITCH_WIDTH = 105
 PITCH_HEIGHT = 68
@@ -777,6 +778,9 @@ class CoordinateModel:
                 )
                 for base, ln, off in parts
             ]
+        # the stage totals in seconds, largest first, as the JAX package logs them
+        totals = sorted(timer.seconds.items(), key=lambda kv: kv[1], reverse=True)
+        log_event("get_coordinates", frames=n, **{k: round(v, 4) for k, v in totals})
         if _clip_lens is not None:
             return res
         if _stream_out:

@@ -10,6 +10,12 @@ staged in shared memory, or read from global memory) and at their edge,
 in its shared-memory-vector instantiation (n > 1024), on matrices whose
 -0.0 and +0.0 tie, its batched launch, all-inf matrices, its input
 checks, and ``masked_assignment`` on the card without a host sync; the
+auction kernel (``csrc/auction.cu``, one block a matrix) and the NMS
+kernel (``csrc/nms.cu``, one block an image) against their plain versions
+(matches and round counts, keep masks) on the cases of
+``eagle_tpu_torch/utils/kernel_cases.py``, at the round cap, on both
+auction paths, as batched launches, with their input checks, and
+``masked_auction`` / ``batched_nms`` on the card without a host sync; the
 multi-device layer: a one-rank NCCL group's runner, gather, halo and
 time-sharded scan, and gloo's host transport between two spawned ranks
 sharing the card.
@@ -22,7 +28,8 @@ imports JAX):
 
 Without a card every test skips.  Tolerances: status bit-equal; positions
 within 1e-2 px on tracked points (the bar tests/test_pallas_flow.py sets
-between the JAX package's two flow engines); assignments bit-equal."""
+between the JAX package's two flow engines); assignments, round counts
+and keep masks bit-equal."""
 
 import json
 
@@ -31,7 +38,9 @@ import pytest
 import torch
 
 from eagle_tpu_torch.ops import assignment as lap
+from eagle_tpu_torch.ops import nms
 from eagle_tpu_torch.ops import optical_flow as of
+from eagle_tpu_torch.utils.kernel_cases import AUCTION_KINDS, NMS_KINDS, auction_case, nms_cases
 from eagle_tpu_torch.utils.lap_bench import lap_costs
 
 pytestmark = pytest.mark.cuda
@@ -498,6 +507,185 @@ def test_masked_assignment_on_the_card_makes_no_host_sync(dev):
     want_m, want_c = lap.masked_assignment(*(a.cpu() for a in args), 0.8)
     assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
     assert (want_m >= 0).sum() >= 5
+
+
+# ---------------------------------------------------------------------------
+# the auction and NMS kernels (csrc/auction.cu, csrc/nms.cu)
+# ---------------------------------------------------------------------------
+
+
+def _auction_inputs(kind, r, c, seed):
+    """(benefit (R, C + R), row_ok) on the CPU, as masked_auction builds them."""
+    cost, rows, cols, gate = auction_case(kind, r, c, seed)
+    feas = torch.from_numpy(rows[:, None] & cols[None, :] & (cost <= gate))
+    return lap.auction_benefit(torch.from_numpy(cost), feas, gate, max_cardinality=False)
+
+
+def _auction_against_plain(dev, benefit, row_ok, c, iterations=512):
+    before = lap.auction_launches
+    got_m, got_r = lap.auction_rounds(benefit.to(dev), row_ok.to(dev), c, iterations)
+    torch.cuda.synchronize()
+    assert lap.auction_launches == before + 1
+    want_m, want_r = lap.auction_rounds_plain(benefit, row_ok, c, iterations)
+    assert got_m.dtype == torch.int64 and got_r.dtype == torch.int32 and got_m.device.type == "cuda"
+    assert torch.equal(got_m.cpu(), want_m) and torch.equal(got_r.cpu(), want_r)
+    return int(want_r.sum())
+
+
+@pytest.mark.parametrize("kind", AUCTION_KINDS)
+@pytest.mark.parametrize("r,c", [(64, 128), (20, 12), (12, 20), (1, 1), (33, 2)])
+def test_auction_kernel_matches_plain(dev, kind, r, c):
+    benefit, row_ok = _auction_inputs(kind, r, c, seed=r + c)
+    assert lap.auction_path(r, c + r, dev) == "shared"
+    _auction_against_plain(dev, benefit, row_ok, c)
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 2, 3, 40])
+@pytest.mark.parametrize("kind", ["tied_block", "ties", "tracking"])
+def test_auction_kernel_at_the_round_cap(dev, kind, iterations):
+    benefit, row_ok = _auction_inputs(kind, 24, 10, seed=7)
+    done = _auction_against_plain(dev, benefit, row_ok, 10, iterations)
+    if kind == "tied_block":
+        assert done == iterations
+
+
+def test_auction_kernel_reads_a_large_matrix_from_global_memory(dev):
+    r, c = 200, 300  # 200 x 500 float32 is 400 KB: more than a block's shared memory
+    assert lap.auction_path(r, c + r, dev) == "global"
+    before = lap.auction_launches_by_path["global"]
+    benefit, row_ok = _auction_inputs("tracking", r, c, seed=1)
+    _auction_against_plain(dev, benefit, row_ok, c)
+    assert lap.auction_launches_by_path["global"] == before + 1
+
+
+def test_auction_batched_launch_equals_single_launches(dev):
+    cases = [_auction_inputs(kind, 64, 128, seed=s) for s, kind in enumerate(["tracking", "ties", "random", "tracking"])]
+    benefit = torch.stack([b for b, _ in cases]).to(dev)
+    row_ok = torch.stack([o for _, o in cases]).to(dev)
+    before = lap.auction_launches
+    match, done = lap.auction_rounds(benefit, row_ok, 128)
+    singles = [lap.auction_rounds(benefit[b], row_ok[b], 128) for b in range(4)]
+    torch.cuda.synchronize()
+    assert lap.auction_launches == before + 5 and match.shape == (4, 64) and done.shape == (4,)
+    for b in range(4):
+        assert torch.equal(match[b], singles[b][0]) and int(done[b]) == int(singles[b][1])
+    want_m, want_r = lap.auction_rounds_plain(benefit.cpu(), row_ok.cpu(), 128)
+    assert torch.equal(match.cpu(), want_m) and torch.equal(done.cpu(), want_r)
+
+
+def test_auction_kernel_adds_its_rounds_to_the_device_tally(dev):
+    benefit, row_ok = _auction_inputs("tied_block", 24, 10, seed=7)
+    lap.reset_rounds()
+    _, done = lap.auction_rounds(benefit.to(dev), row_ok.to(dev), 10, iterations=37)
+    _, done2 = lap.auction_rounds(benefit.to(dev), row_ok.to(dev), 10, iterations=5)
+    torch.cuda.synchronize()
+    assert int(done) == 37 and int(done2) == 5 and lap.device_rounds() == 42 and lap.rounds == 0
+
+
+def test_auction_kernel_checks_its_inputs(dev):
+    before = lap.auction_launches
+    b, ok = torch.zeros(4, 7, device=dev), torch.ones(4, dtype=torch.bool, device=dev)
+    for args in ((b.double(), ok, 3), (b, ok.int(), 3), (b, ok, 4), (b.t().contiguous().t(), ok, 3),
+                 (b, ok.cpu(), 3)):
+        with pytest.raises(ValueError, match="auction_rounds takes"):
+            lap.auction_rounds(*args)
+    assert lap.auction_launches == before
+
+
+def test_masked_auction_on_the_card_makes_no_host_sync(dev):
+    cost, rows, cols, gate = auction_case("tracking", 64, 128, seed=4)
+    args = [torch.from_numpy(a).to(dev) for a in (cost, rows, cols)]
+    lap.masked_auction(*args, gate)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = lap.auction_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        match, matched_col = lap.masked_auction(*args, gate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lap.auction_launches == before + 1
+    want_m, want_c = lap.masked_auction(*(a.cpu() for a in args), gate)
+    assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
+    assert (want_m >= 0).sum() >= 10
+
+
+def _suppress_inputs(boxes, scores, k=512):
+    """The shifted boxes and valid mask batched_nms hands suppress, on the
+    CPU (its own set-up code, run with suppress recorded)."""
+    seen = []
+    real = nms.suppress
+
+    def record(shifted, valid, thr):
+        seen.append((shifted, valid))
+        return real(shifted, valid, thr)
+
+    nms.suppress = record
+    try:
+        nms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), pre_topk=k)
+    finally:
+        nms.suppress = real
+    return seen[0]
+
+
+def _suppress_against_plain(dev, shifted, valid, thr=0.7):
+    before = nms.launches
+    got = nms.suppress(shifted.to(dev), valid.to(dev), thr)
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1 and got.dtype == torch.bool and got.device.type == "cuda"
+    want = nms.suppress_plain(shifted, valid, thr)
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nms_kernel_matches_plain(dev, seed):
+    """One image of each kind at k = 512: clusters, IoU exactly at the
+    threshold and one float32 step above, a 12-link chain, nothing above
+    the floor, overflow."""
+    shifted, valid = _suppress_inputs(*nms_cases(seed))
+    keep = _suppress_against_plain(dev, shifted, valid)
+    thr = NMS_KINDS.index("threshold")
+    assert keep[thr, :4].tolist() == [True, True, True, False]
+    assert keep[NMS_KINDS.index("chain"), :12].tolist() == [m % 2 == 0 for m in range(12)]
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 100, 512, 1000, 1024])
+def test_nms_kernel_at_each_width(dev, k):
+    """k candidates a thread, over the instantiations of 1 to 32 words."""
+    boxes, scores = nms_cases(k, na=max(k, 12))
+    shifted, valid = _suppress_inputs(boxes, scores, k)
+    assert shifted.shape[1] == k
+    _suppress_against_plain(dev, shifted, valid)
+    _suppress_against_plain(dev, shifted, valid, thr=0.3)
+
+
+def test_nms_kernel_checks_its_inputs(dev):
+    before = nms.launches
+    s, v = torch.zeros(2, 8, 4, device=dev), torch.ones(2, 8, dtype=torch.bool, device=dev)
+    for args in ((s.double(), v), (s, v.int()), (s[..., :3].contiguous(), v), (s, v.cpu())):
+        with pytest.raises(ValueError, match="suppress takes"):
+            nms.suppress(*args, 0.7)
+    with pytest.raises(ValueError, match="at most 1024"):
+        nms.suppress(torch.zeros(1, 1025, 4, device=dev), torch.ones(1, 1025, dtype=torch.bool, device=dev), 0.7)
+    assert nms.suppress(torch.zeros(0, 8, 4, device=dev), torch.zeros(0, 8, dtype=torch.bool, device=dev),
+                        0.7).shape == (0, 8)
+    assert nms.launches == before
+
+
+def test_batched_nms_on_the_card_makes_no_host_sync(dev):
+    boxes, scores = (torch.from_numpy(a) for a in nms_cases(2))
+    x = boxes.to(dev), scores.to(dev)
+    nms.batched_nms(*x)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = nms.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = nms.batched_nms(*x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nms.launches == before + 1
+    for g, w in zip(got, nms.batched_nms(boxes, scores)):
+        assert torch.equal(g.cpu(), w)
 
 
 # ---------------------------------------------------------------------------
