@@ -33,7 +33,7 @@ Phases (any failure exits non-zero, nothing is caught):
 4b. loops (the kernel phase's second half, after the slice: it needs the
    slice model): the device loops' kernels against their plain versions on
    the card.  The auction kernel (one block a matrix, every round inside
-   it) on the tracker's own solves, recorded in a run of the slice model
+   it, the rows in registers) on the tracker's own solves, recorded in a run of the slice model
    on 16 frames (93 matrices of 64 x 192, all three stages), on the
    ``utils/kernel_cases.py`` kinds (sparse, random, tied, a tied block,
    infeasible rows) at 64 x 128, R > C and R < C, a tied block capped at
@@ -41,12 +41,21 @@ Phases (any failure exits non-zero, nothing is caught):
    matches and round counts bit-equal to ``auction_rounds_plain`` on CPU
    copies; ``masked_auction`` makes no host sync; device ms a launch (the
    profiler's trace; one device kernel a call) by stage with its rounds,
-   the eager loop's ms on the same CUDA tensors and the bound.  The NMS
-   kernel (one block an image) on the slice's 16-frame detector batch (16
-   x 512) and the kernel_cases images (IoU exactly at the threshold and
-   one float32 step above, a 12-link chain, an empty and an overflowing
-   image): keep bit-equal to ``suppress_plain``; ``batched_nms`` makes no
-   host sync; device ms a launch, the plain version's ms and the bound;
+   the eager loop's ms on the same CUDA tensors and the bound; device ms
+   a launch of kernel_cases problems of 0, 1, 4 and 11 rounds, and so a
+   round's cost.  The NMS kernel (the overlap bits over the card, then the
+   fixed point in a block an image: two device kernels a launch) on the
+   slice's 16-frame detector batch (16 x 512) and the kernel_cases images
+   (IoU exactly at the threshold and one float32 step above, a 12-link
+   chain, an empty and an overflowing image), keep bit-equal to
+   ``suppress_plain``, and on one image each of 1025, 2048, 4096 and
+   10,710 clustered candidates (thousands valid) against
+   ``suppress_plain`` on the same CUDA tensors; ``batched_nms`` makes no
+   host sync; device ms a launch, the plain version's ms and the bound,
+   the earlier one-block designs' recorded times beside them; then one
+   ``get_coordinates`` of the slice model on 16 frames at
+   ``nms_pre_topk=2048`` (one NMS launch a batch at that width) equals
+   the same run at 512;
 5. process: the CLI's function (``eagle_tpu_torch.main.run``) from 48
    host frames of a match (the slice's frames with 22 players in two kits
    and a ball drawn over them, oracle models that know them) to the four
@@ -228,6 +237,15 @@ REF_BOUNDARY_ATOL = 1e-2
 REF_TRUTH_PX = 6.0
 #: frames of the profiled run (--profile)
 PROFILE_FRAMES = 24
+#: device ms a launch of the earlier one-block designs of the two loop
+#: kernels on the main path, by the auction's stage: values recorded in
+#: PERF.md section 6 (an H100 80GB HBM3 at 700 W), not measured by this
+#: script, printed on the kernel lines marked as recorded and kept out of
+#: the kernels line; ``python -m eagle_tpu_torch.utils.loop_bench --other
+#: LABEL=DIR`` times two versions of the sources in one process
+RECORDED_EARLIER_MS = {"auction": {1: 0.0090, 2: 0.0049, 3: 0.0037}, "nms": 0.0245}
+#: the detector's pre-NMS candidates in the loops phase's wider run
+WIDE_PRE_TOPK = 2048
 #: the JV kernel's main-path size: DEFAULT_CONFIG's 64 track slots + 128
 #: detection slots, the extended square matrix of masked_assignment
 LAP_N = 192
@@ -477,8 +495,8 @@ TRACE_ATTEMPTS = 3
 def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "launches") -> dict:
     """``reps`` calls of ``call()`` under ``torch.profiler``: the device
     operations in the trace (kernels, copies and sets), the durations (us)
-    of the flow kernels among them (every kernel whose name holds
-    ``kernel``), and the launches the wrapper module ``of`` counted
+    and (start, end) spans of the flow kernels among them (every kernel
+    whose name holds ``kernel``), and the launches the wrapper module ``of`` counted
     meanwhile in its attribute ``count`` (``lap_jv``: the assignment
     module and its kernel).  On the H100 the profiler
     has been seen to miss one launch of 20, and once to trace no device
@@ -497,9 +515,11 @@ def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "laun
             torch.cuda.synchronize()
         launched = getattr(of, count) - launches0
         ops = [e for e in trace_events(prof) if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        flow = [e["dur"] for e in ops if e["cat"] == "kernel" and kernel in e["name"]]
+        mine = [e for e in ops if e["cat"] == "kernel" and kernel in e["name"]]
+        flow = [e["dur"] for e in mine]
         if best is None or len(flow) > len(best["flow"]):
-            best = {"ops": ops, "flow": flow, "launched": launched}
+            best = {"ops": ops, "flow": flow, "spans": [(e["ts"], e["ts"] + e["dur"]) for e in mine],
+                    "launched": launched}
         if len(flow) >= launched:
             break
     return best | {"sessions": attempt}
@@ -951,7 +971,7 @@ def zero_loop_counts() -> None:
     from eagle_tpu_torch.ops import assignment, nms
 
     assignment.auction_launches = 0
-    assignment.auction_launches_by_path = {"shared": 0, "global": 0}
+    assignment.auction_launches_by_path = {"registers": 0, "global": 0}
     assignment.reset_rounds()
     nms.launches = 0
 
@@ -1022,17 +1042,21 @@ def record_loop_inputs(model, frames) -> tuple[list, list]:
     return solves, batches
 
 
-def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20) -> tuple[float, str]:
+def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20, per_call: int = 1) -> tuple[float, str]:
     """Device time of one launch from the profiler's trace over ``reps``
-    calls (:func:`traced_flow`), or by CUDA events where no session traced
-    one; fails unless each call launched the kernel once (``mod``'s
-    ``count``) and ran no other device operation."""
+    calls (:func:`traced_flow`): the time the ``per_call`` device kernels a
+    launch runs (every kernel whose name holds ``kernel``) cover, the union
+    of their spans (a dependent kernel may start before the one it waits
+    on ends), or by CUDA events where no session traced one; fails unless
+    each call launched once (``mod``'s ``count``) and ran no other device
+    operation."""
     tr = traced_flow(mod, call, reps, kernel=kernel, count=count)
-    if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > reps:
+    if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > per_call * reps:
         fail(f"{reps} {what} calls launched the kernel {tr['launched']} times and traced "
              f"{len(tr['ops']) - len(tr['flow'])} other device operations")
     if tr["flow"]:
-        return sum(tr["flow"]) / len(tr["flow"]) / 1e3, f"profiler, {len(tr['flow'])} of {reps} traced, one kernel a call"
+        return (per_call * _union_ms(tr["spans"]) / len(tr["flow"]),
+                f"profiler, {len(tr['flow'])} of {per_call * reps} kernels traced, {per_call} a call")
     return cuda_ms(call, reps=reps), f"CUDA events (no {kernel} kernel traced in {tr['sessions']} sessions)"
 
 
@@ -1085,7 +1109,7 @@ def auction_kernel(solves: list) -> dict:
     import torch
 
     from eagle_tpu_torch.ops import assignment as lap
-    from eagle_tpu_torch.utils.kernel_cases import AUCTION_KINDS, auction_case
+    from eagle_tpu_torch.utils.kernel_cases import AUCTION_KINDS, ROUND_CASES, auction_case, auction_round_case
 
     def inputs(cost, rows, cols, gate):
         feas = rows[:, None] & cols[None, :] & (cost <= gate)
@@ -1094,8 +1118,8 @@ def auction_kernel(solves: list) -> dict:
     counts0 = lap.auction_launches, dict(lap.auction_launches_by_path)
     tracked = [(st, *inputs(cost, rows, cols, gate), cost.shape[1]) for st, cost, rows, cols, gate in solves]
     r, ctot = tracked[0][1].shape
-    if lap.auction_path(r, ctot) != "shared":
-        fail(f"the auction at R = {r}, C + R = {ctot} does not stage its benefit in shared memory")
+    if lap.auction_path(r, ctot) != "registers":
+        fail(f"the auction at R = {r}, C + R = {ctot} does not keep its rows in registers")
     per_stage = {1: [0, 0, 0], 2: [0, 0, 0], 3: [0, 0, 0]}  # launches, rounds, bidding rows
     for k, (st, ben, ok, c) in enumerate(tracked):
         done, record = auction_against_plain(ben, ok, c, 512, f"tracker solve {k}, stage {st}")
@@ -1136,6 +1160,23 @@ def auction_kernel(solves: list) -> dict:
           f"capped at 1, 2, 3 rounds) and one B = 4 launch == plain and == 4 single launches; masked_auction "
           f"{syncs} host syncs")
 
+    # a launch's cost and a round's: kernel_cases' problems of 0, 1, 4 and 11 rounds
+    by_rounds = {}
+    for n in sorted(ROUND_CASES):
+        cost, rows, cols, gate = (torch.from_numpy(a).cuda() if isinstance(a, np.ndarray) else a
+                                  for a in auction_round_case(n))
+        ben, ok = inputs(cost, rows, cols, gate)
+        if auction_against_plain(ben, ok, cost.shape[1], 512, f"the {n}-round case")[0] != n:
+            fail(f"the {n}-round auction case ran another number of rounds")
+        by_rounds[n], _ = kernel_ms(lap, lambda: lap.auction_rounds(ben, ok, cost.shape[1]), "auction_launches",
+                                    "auction", f"auction_rounds ({n} rounds)")
+    round_ms = (by_rounds[11] - by_rounds[1]) / 10
+    print(f"kernel auction at 64 x 192: device ms a launch of 0, 1, 4, 11 rounds "
+          f"{json.dumps({k: round(v, 5) for k, v in by_rounds.items()})}; a round {round_ms * 1e3:.3f} us "
+          f"((11 rounds - 1 round) / 10); the earlier one-block design, recorded in PERF.md and not measured "
+          f"here: a launch of 0 rounds {RECORDED_EARLIER_MS['auction'][3]} ms, 4 rounds "
+          f"{RECORDED_EARLIER_MS['auction'][1]} ms")
+
     # times: the three stages of the last recorded step, each its own matrix
     entry_stages = {}
     for st, ben, ok, c in tracked[-3:]:
@@ -1144,7 +1185,8 @@ def auction_kernel(solves: list) -> dict:
         done, record = auction_against_plain(ben, ok, c, 512, f"timed stage {st}")
         plain = cuda_ms(lambda: lap.auction_rounds_plain(ben, ok, c), reps=5, warmup=1)
         t_bytes, t_ops, bound, by = auction_bound(1, r, ctot, sum(record))
-        print(f"kernel auction stage {st}: {ms:.4f} ms device time a launch ({how}), {done} rounds "
+        print(f"kernel auction stage {st}: {ms:.4f} ms device time a launch ({how}; the earlier design "
+              f"{RECORDED_EARLIER_MS['auction'][st]} ms, recorded in PERF.md, not measured here), {done} rounds "
               f"({sum(record)} bidding rows); plain (the eager loop on the card, a host sync a round) {plain:.4f} ms; "
               f"needs {r * ctot * 4 + r + r * 8 + 4} B = {t_bytes * 1e3:.4f} us and {3 * ctot * sum(record)} f32 "
               f"instructions = {t_ops * 1e3:.5f} us -> bound {bound * 1e3:.4f} us by {by}, launch {ms / bound:.0f}x "
@@ -1168,6 +1210,8 @@ def auction_kernel(solves: list) -> dict:
         "shape": [r, ctot],
         "stages": entry_stages,
         "tracker_solves": {str(k): v for k, v in per_stage.items()},
+        "ms_by_rounds": {str(k): v for k, v in by_rounds.items()},
+        "round_ms": round_ms,
     }
 
 
@@ -1198,7 +1242,7 @@ def nms_kernel(batches: list) -> dict:
     import torch
 
     from eagle_tpu_torch.ops import nms
-    from eagle_tpu_torch.utils.kernel_cases import CHAIN, NMS_KINDS, nms_cases
+    from eagle_tpu_torch.utils.kernel_cases import ANCHORS, CHAIN, NMS_KINDS, nms_cases, nms_wide_case, suppress_inputs
 
     launches0 = nms.launches
     shifted, valid, thr = batches[0]
@@ -1215,21 +1259,17 @@ def nms_kernel(batches: list) -> dict:
             fail(f"the NMS kernel's keep differs from the plain version's ({what}) at {bad}")
         return want
 
+    def against_plain_on_card(s, v, what):
+        before = nms.launches
+        got = nms.suppress(s, v, thr)
+        want = nms.suppress_plain(s, v, thr)
+        if nms.launches != before + 1 or not torch.equal(got, want):
+            fail(f"the NMS kernel's keep differs from the plain version's ({what})")
+        return got
+
     keep = against_plain(shifted, valid, "the slice's detector batch")
-    cases, seen = [], []
-    real = nms.suppress
-
-    def record(s, v, t):
-        seen.append((s, v))
-        return real(s, v, t)
-
-    nms.suppress = record
-    try:
-        for seed in (SEED, SEED + 1):
-            boxes, scores = (torch.from_numpy(a).cuda() for a in nms_cases(seed))
-            nms.batched_nms(boxes, scores, conf_threshold=0.15, iou_threshold=thr, max_det=128, pre_topk=512)
-    finally:
-        nms.suppress = real
+    cases = []
+    seen = [suppress_inputs(*nms_cases(seed), 512, device="cuda") for seed in (SEED, SEED + 1)]
     for k, (s, v) in enumerate(seen):
         want = against_plain(s, v, f"kernel_cases seed {k}")
         if want[NMS_KINDS.index("threshold"), :4].tolist() != [True, True, True, False] or want[
@@ -1246,13 +1286,29 @@ def nms_kernel(batches: list) -> dict:
           f"{sum(cases)} kernel_cases images (threshold pairs, a {CHAIN}-link chain, empty, overflow) == plain bit "
           f"for bit; batched_nms {syncs} host syncs")
 
-    ms, how = kernel_ms(nms, lambda: nms.suppress(shifted, valid, thr), "launches", "nms_suppress", "suppress")
+    ms, how = kernel_ms(nms, lambda: nms.suppress(shifted, valid, thr), "launches", "nms_suppress", "suppress",
+                        per_call=2)
     plain = cuda_ms(lambda: nms.suppress_plain(shifted, valid, thr), reps=5, warmup=1)
     t_bytes, t_ops, bound, by, pairs = nms_bound(valid, k)
-    print(f"kernel nms: {ms:.4f} ms device time a launch ({how}); plain (the dense IoU block and the loop on the "
-          f"card, a host sync a pass) {plain:.4f} ms; needs {b * k * 18} B = {t_bytes * 1e3:.4f} us and {18 * pairs} "
-          f"f32 instructions ({pairs} pairs) = {t_ops * 1e3:.4f} us -> bound {bound * 1e3:.4f} us by {by}, launch "
-          f"{ms / bound:.1f}x over it")
+    print(f"kernel nms: {ms:.4f} ms device time a launch ({how}; the earlier one-block design "
+          f"{RECORDED_EARLIER_MS['nms']} ms, recorded in PERF.md, not measured here); plain (the dense IoU block "
+          f"and the loop on the card, a host sync a pass) {plain:.4f} ms; "
+          f"needs {b * k * 18} B = {t_bytes * 1e3:.4f} us and {18 * pairs} f32 instructions ({pairs} pairs) = "
+          f"{t_ops * 1e3:.4f} us -> bound {bound * 1e3:.4f} us by {by}, launch {ms / bound:.1f}x over it")
+
+    # past 1024 candidates, one image each, up to the anchor count: the
+    # plain version's dense (k, k) block on the same CUDA tensors
+    wide = {}
+    for kw in (1025, 2048, 4096, ANCHORS):
+        sw, vw = suppress_inputs(*nms_wide_case(kw, b=1, seed=kw), kw, device="cuda")
+        got = against_plain_on_card(sw, vw, f"one image of {kw} candidates")
+        wms, whow = kernel_ms(nms, lambda: nms.suppress(sw, vw, thr), "launches", "nms_suppress",
+                              f"suppress at k = {kw}", reps=5, per_call=2)
+        wb, wo, wbound, wby, wpairs = nms_bound(vw, kw)
+        wide[str(kw)] = {"valid": int(vw.sum()), "kept": int(got.sum()), "ms": wms, "bound_ms": wbound,
+                         "bound_by": wby}
+        print(f"kernel nms at 1 x {kw}: {int(vw.sum())} valid, {int(got.sum())} kept == plain; {wms:.4f} ms device "
+              f"time a launch ({whow}); bound {wbound * 1e3:.4f} us by {wby} ({wpairs} pairs), {wms / wbound:.1f}x")
     nms.launches = launches0  # comparison launches are not main-path launches
     return {
         "name": "nms",
@@ -1268,6 +1324,7 @@ def nms_kernel(batches: list) -> dict:
         "library_ms": None,
         "shape": [b, k],
         "pairs": pairs,
+        "wide": wide,
     }
 
 
@@ -1281,8 +1338,48 @@ def phase_loops(model, frames) -> tuple[dict, dict]:
     if len(solves) < 45 or len(solves) % 3 or not batches:
         fail(f"the slice model's run on 16 frames made {len(solves)} solver calls and {len(batches)} suppressions")
     entries = auction_kernel(solves), nms_kernel(batches)
+    nms_wide_slice(model, frames[:16])
     print(f"loops: phase wall {time.perf_counter() - t0:.1f} s")
     return entries
+
+
+def nms_wide_slice(model, frames) -> None:
+    """``get_coordinates`` of the slice model on ``frames`` with the
+    detector's ``nms_pre_topk`` at WIDE_PRE_TOPK: one NMS launch a batch at
+    that width, and the same coordinates as at the default 512 (the
+    seeded detector's valid candidates, ~90 an image, all lie in the first
+    512, and the candidates past them can only add boxes after the kept
+    ones, which max_det already cut)."""
+    import dataclasses
+
+    from eagle_tpu_torch.ops import nms
+    from eagle_tpu_torch.pipeline.coordinate_model import PIECE
+
+    want = model.get_coordinates(frames, FPS, num_keypoint_detection=3)
+    cfg = model.config
+    widths = []
+    real = nms.suppress
+
+    def record(shifted, valid, thr):
+        widths.append(shifted.shape[1])
+        return real(shifted, valid, thr)
+
+    model.config = cfg.replace(detector=dataclasses.replace(cfg.detector, nms_pre_topk=WIDE_PRE_TOPK))
+    nms.suppress = record
+    launches0 = nms.launches
+    try:
+        got = model.get_coordinates(frames, FPS, num_keypoint_detection=3)
+    finally:
+        model.config, nms.suppress = cfg, real
+    batches = -(-len(frames) // PIECE)
+    if widths != [WIDE_PRE_TOPK] * batches or nms.launches - launches0 != batches:
+        fail(f"get_coordinates at nms_pre_topk={WIDE_PRE_TOPK} suppressed at widths {widths} in "
+             f"{nms.launches - launches0} launches")
+    if got != want:
+        bad = [i for i in want if got.get(i) != want[i]]
+        fail(f"get_coordinates at nms_pre_topk={WIDE_PRE_TOPK} differs from the run at 512 in frames {bad[:10]}")
+    print(f"loops: get_coordinates at nms_pre_topk={WIDE_PRE_TOPK} on {len(frames)} frames: {batches} NMS launches "
+          f"at k = {WIDE_PRE_TOPK}, the coordinates == the run at 512")
 
 
 # ---------------------------------------------------------------------------

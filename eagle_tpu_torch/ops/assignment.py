@@ -41,9 +41,9 @@ rounds = 0
 #: launches of the auction kernel (one per :func:`auction_rounds` call on
 #: CUDA tensors)
 auction_launches = 0
-#: the same launches by path: the benefit staged in shared memory, or read
-#: from global memory (a matrix too large for the block)
-auction_launches_by_path = {"shared": 0, "global": 0}
+#: the same launches by path: the rows kept in registers (R <= 128, C + R <=
+#: 256), or the benefit read from global memory (a larger matrix)
+auction_launches_by_path = {"registers": 0, "global": 0}
 #: the kernel's rounds, one int64 tally a device, added on the card
 _round_tally: dict = {}
 
@@ -87,14 +87,15 @@ def _load_auction():
 
 def auction_path(r: int, ctot: int, device=None) -> str:
     """The path an auction launch over (R, C + R) matrices takes on
-    ``device`` (default: the current CUDA device): "shared" when the
-    benefit and the vectors fit in a block's shared memory, else
-    "global"; raises where the vectors alone do not fit."""
+    ``device`` (default: the current CUDA device): "registers" when the
+    block keeps the rows in registers (R <= 128, C + R <= 256), else
+    "global"; raises where the vectors alone do not fit in a block's
+    shared memory."""
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         code = _load_auction().auction_path(r, ctot)
     if code < 0:
         raise RuntimeError(f"auction kernel: cudaError {-code} choosing the path for R = {r}, C + R = {ctot}")
-    return "shared" if code == 1 else "global"
+    return "registers" if code == 1 else "global"
 
 
 def device_rounds() -> int:
@@ -232,7 +233,7 @@ def auction_rounds_cuda(
     if err != 0:
         raise RuntimeError(f"auction kernel launch failed at B = {b}, R = {r}, C = {c}: cudaError {err}")
     auction_launches += 1
-    auction_launches_by_path["shared" if taken.value == 1 else "global"] += 1
+    auction_launches_by_path["registers" if taken.value == 1 else "global"] += 1
     return match, done
 
 

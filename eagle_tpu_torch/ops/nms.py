@@ -8,10 +8,11 @@ score-descending slots.  The tracker's slot order depends on this order.
 
 The suppression is the JAX package's fixed point (a ``lax.while_loop``, one
 device program).  On CUDA tensors it is one launch of the hand-written
-kernel ``csrc/nms.cu`` (one block an image, the whole fixed point inside
-it, no host sync); on CPU tensors it is :func:`suppress_plain`, one dense
-IoU block and the loop, whose exit test syncs once a pass.  Both give the
-same keep mask, bit for bit.
+kernel ``csrc/nms.cu`` at any number of candidates (the overlap bits of
+every pair spread over the card, then the fixed point of each image in one
+block; no host sync); on CPU tensors it is :func:`suppress_plain`, one
+dense IoU block and the loop, whose exit test syncs once a pass.  Both
+give the same keep mask, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ from eagle_tpu_torch.native import build_library
 from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
 
 MAX_WH = 7680.0  # class-separation offset (ultralytics convention)
-#: the most candidates an image the kernel takes (a thread each, one block)
-MAX_K = 1024
 
 _CU_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "nms.cu")
 _CU_LIB = os.path.join(BUILD_DIR, "libnms.so")
@@ -115,10 +114,12 @@ def _load():
     with _build_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
+            lib.nms_workspace_words.restype = ctypes.c_longlong
+            lib.nms_workspace_words.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.nms_launch.restype = ctypes.c_int
             lib.nms_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
             ]
             _lib = lib
     return _lib
@@ -126,25 +127,25 @@ def _load():
 
 def suppress_cuda(shifted: torch.Tensor, top_valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """One launch of the NMS kernel over CUDA tensors as
-    :func:`suppress_plain` takes them, k <= MAX_K: keep (B, k) bool, what
-    the plain version gives, left on the card.  Raises ``ValueError`` on
-    any other input and ``RuntimeError`` when the kernel does not build or
+    :func:`suppress_plain` takes them, any k: keep (B, k) bool, what the
+    plain version gives, left on the card (the overlap words go to a
+    workspace of ``torch.empty``).  Raises ``ValueError`` on any other
+    input and ``RuntimeError`` when the kernel does not build or
     launch."""
     global launches
     _check(shifted, top_valid)
-    nb, k = top_valid.shape
-    if k > MAX_K:
-        raise ValueError(f"the NMS kernel takes at most {MAX_K} candidates an image, got k = {k}")
     if shifted.device.type != "cuda":
         raise ValueError(f"the NMS kernel needs CUDA tensors, got {shifted.device}")
+    nb, k = top_valid.shape
     keep = torch.empty((nb, k), dtype=torch.bool, device=shifted.device)
     if nb == 0 or k == 0:
         return keep
     lib = _load()
+    work = torch.empty(lib.nms_workspace_words(nb, k), dtype=torch.int32, device=shifted.device)
     with torch.cuda.device(shifted.device):
         stream = torch.cuda.current_stream(shifted.device).cuda_stream
         err = lib.nms_launch(shifted.data_ptr(), top_valid.data_ptr(), nb, k, float(np.float32(iou_threshold)),
-                             keep.data_ptr(), stream)
+                             keep.data_ptr(), work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed at B = {nb}, k = {k}: cudaError {err}")
     launches += 1

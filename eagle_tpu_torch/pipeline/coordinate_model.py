@@ -286,6 +286,7 @@ class CoordinateModel:
         #: temporal steps run, and on-demand keypoint rounds run (observability)
         self.frames_stepped = 0
         self.ondemand_rounds = 0
+        self._box_maps: dict = {}
 
         self._custom_kp = keypoint_fn is not None
         self._keypoint_fn = keypoint_fn
@@ -447,7 +448,6 @@ class CoordinateModel:
         "reid"."""
         timer = timer or StageTimer(self.device)
         dcfg = self.config.detector
-        h, w = img_hw
         with timer("detector"):
             if geom.enabled:
                 imgs = x.flip(-1).to(torch.float32) / 255.0
@@ -464,19 +464,38 @@ class CoordinateModel:
                 max_det=dcfg.max_detections,
                 pre_topk=dcfg.nms_pre_topk,
             )
-            dev = b.device
-            pad4 = torch.tensor([pad[0], pad[1], pad[0], pad[1]], dtype=torch.float32, device=dev)
-            gain_t = torch.tensor(gain, dtype=torch.float32, device=dev)
-            b = (b - pad4) / gain_t
-            hi = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev)
-            b = torch.minimum(torch.clamp(b, min=0.0), hi)
+            wmap, hi = self._box_map(b.device, gain, pad, img_hw)
+            nb, d = b.shape[:2]
+            b = torch.minimum(torch.clamp(wmap.to_orig(b.view(nb, d, 2, 2)).view(nb, d, 4), min=0.0), hi)
             rows = torch.cat(
                 [b, s[..., None], c.to(torch.float32)[..., None], v.to(torch.float32)[..., None]], dim=-1
             )
         if self.config.tracker.use_appearance:
             with timer("reid"):
-                rows = torch.cat([rows, self.embed(x, b * gain_t + pad4 if geom.enabled else b)], dim=-1)
+                crop = wmap.to_frame(b.view(nb, d, 2, 2)).view(nb, d, 4) if geom.enabled else b
+                rows = torch.cat([rows, self.embed(x, crop)], dim=-1)
         return rows
+
+    def _box_map(self, dev, gain: float, pad, img_hw) -> tuple[temporal._WorkMap, torch.Tensor]:
+        """(the map between the detector's letterbox and original pixels,
+        the clamp's upper corner (4,) float32) on ``dev``, made once a
+        device and geometry.  The JAX program divides the boxes by a
+        compile-time gain, which XLA compiles as a product with its float32
+        reciprocal, and maps them back to the canvas as one multiply-add:
+        ``temporal._WorkMap``'s arithmetic."""
+        key = (str(dev), float(gain), tuple(pad), tuple(img_hw))
+        if key not in self._box_maps:
+            g = np.float32(gain)
+            h, w = img_hw
+            self._box_maps[key] = (
+                temporal._WorkMap(
+                    torch.tensor(g, device=dev),
+                    torch.tensor(np.float32(1.0) / g, device=dev),
+                    torch.tensor([pad[0], pad[1]], dtype=torch.float32, device=dev),
+                ),
+                torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev),
+            )
+        return self._box_maps[key]
 
     @torch.no_grad()
     def embed(self, x: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:

@@ -215,7 +215,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(no_kernels):
         for args in bad_nms:
             with pytest.raises(ValueError, match="suppress takes"):
                 fn(*args, 0.7)
-    with pytest.raises(ValueError, match="at most 1024"):
+    with pytest.raises(ValueError, match="needs CUDA"):  # any k on the card; a CPU tensor is refused
         suppress_cuda(torch.zeros(1, 1025, 4), torch.ones(1, 1025, dtype=torch.bool), 0.7)
     with pytest.raises(ValueError, match="needs CUDA"):
         suppress_cuda(s, v, 0.7)

@@ -11,10 +11,12 @@ in its shared-memory-vector instantiation (n > 1024), on matrices whose
 -0.0 and +0.0 tie, its batched launch, all-inf matrices, its input
 checks, and ``masked_assignment`` on the card without a host sync; the
 auction kernel (``csrc/auction.cu``, one block a matrix) and the NMS
-kernel (``csrc/nms.cu``, one block an image) against their plain versions
-(matches and round counts, keep masks) on the cases of
-``eagle_tpu_torch/utils/kernel_cases.py``, at the round cap, on both
-auction paths, as batched launches, with their input checks, and
+kernel (``csrc/nms.cu``: the overlap bits over the card, the fixed point
+in a block an image) against their plain versions (matches and round
+counts, keep masks) on the cases of
+``eagle_tpu_torch/utils/kernel_cases.py``, at the round cap and at 0, 1, 4
+and 11 rounds, on both auction paths, NMS at 1025 to 10,710 candidates,
+as batched launches, with their input checks, and
 ``masked_auction`` / ``batched_nms`` on the card without a host sync; the
 multi-device layer: a one-rank NCCL group's runner, gather, halo and
 time-sharded scan, and gloo's host transport between two spawned ranks
@@ -40,7 +42,17 @@ import torch
 from eagle_tpu_torch.ops import assignment as lap
 from eagle_tpu_torch.ops import nms
 from eagle_tpu_torch.ops import optical_flow as of
-from eagle_tpu_torch.utils.kernel_cases import AUCTION_KINDS, NMS_KINDS, auction_case, nms_cases
+from eagle_tpu_torch.utils.kernel_cases import (
+    ANCHORS,
+    AUCTION_KINDS,
+    NMS_KINDS,
+    ROUND_CASES,
+    auction_case,
+    auction_round_case,
+    nms_cases,
+    nms_wide_case,
+    suppress_inputs,
+)
 from eagle_tpu_torch.utils.lap_bench import lap_costs
 
 pytestmark = pytest.mark.cuda
@@ -532,12 +544,26 @@ def _auction_against_plain(dev, benefit, row_ok, c, iterations=512):
     return int(want_r.sum())
 
 
+#: (R, C) that reach each of csrc/auction.cu's on-chip instantiations (K
+#: columns a lane, RW rows a warp): K the least of 1, 2, 4, 6, 8 with 32 K
+#: >= C + R, RW the least of 1, 2, 4 with 32 RW >= R; R <= C + R, so RW <= K
+ONCHIP_SHAPES = {(1, 1): (20, 12), (2, 1): (20, 30), (2, 2): (40, 20), (4, 1): (30, 80), (4, 2): (40, 60),
+                 (4, 4): (100, 20), (6, 1): (32, 150), (6, 2): (64, 128), (6, 4): (96, 96), (8, 1): (16, 240),
+                 (8, 2): (64, 192), (8, 4): (128, 128)}
+
+
 @pytest.mark.parametrize("kind", AUCTION_KINDS)
-@pytest.mark.parametrize("r,c", [(64, 128), (20, 12), (12, 20), (1, 1), (33, 2)])
+@pytest.mark.parametrize("r,c", sorted({(12, 20), (1, 1), (33, 2), *ONCHIP_SHAPES.values()}))
 def test_auction_kernel_matches_plain(dev, kind, r, c):
+    """Each kind at every (K, RW) the on-chip path instantiates, up to its
+    limit R = 128, C + R = 256 (the most registers a thread: 1024 threads)."""
+    inst = next(k for k in (1, 2, 4, 6, 8) if 32 * k >= c + r), next(w for w in (1, 2, 4) if 32 * w >= r)
+    assert (r, c) not in ONCHIP_SHAPES.values() or ONCHIP_SHAPES[inst] == (r, c)
+    assert lap.auction_path(r, c + r, dev) == "registers"
     benefit, row_ok = _auction_inputs(kind, r, c, seed=r + c)
-    assert lap.auction_path(r, c + r, dev) == "shared"
+    before = lap.auction_launches_by_path["registers"]
     _auction_against_plain(dev, benefit, row_ok, c)
+    assert lap.auction_launches_by_path["registers"] == before + 1
 
 
 @pytest.mark.parametrize("iterations", [0, 1, 2, 3, 40])
@@ -549,8 +575,18 @@ def test_auction_kernel_at_the_round_cap(dev, kind, iterations):
         assert done == iterations
 
 
+@pytest.mark.parametrize("rounds", sorted(ROUND_CASES))
+def test_auction_kernel_runs_each_round_case(dev, rounds):
+    """64 x 192 benefits whose auctions run 0 (no row can bid: the launch
+    returns before it reads the benefit), 1, 4 and 11 rounds."""
+    cost, rows, cols, gate = auction_round_case(rounds)
+    feas = torch.from_numpy(rows[:, None] & cols[None, :] & (cost <= gate))
+    benefit, row_ok = lap.auction_benefit(torch.from_numpy(cost), feas, gate, max_cardinality=False)
+    assert _auction_against_plain(dev, benefit, row_ok, 128) == rounds
+
+
 def test_auction_kernel_reads_a_large_matrix_from_global_memory(dev):
-    r, c = 200, 300  # 200 x 500 float32 is 400 KB: more than a block's shared memory
+    r, c = 200, 300  # more rows (and columns) than a block keeps in registers
     assert lap.auction_path(r, c + r, dev) == "global"
     before = lap.auction_launches_by_path["global"]
     benefit, row_ok = _auction_inputs("tracking", r, c, seed=1)
@@ -609,24 +645,6 @@ def test_masked_auction_on_the_card_makes_no_host_sync(dev):
     assert (want_m >= 0).sum() >= 10
 
 
-def _suppress_inputs(boxes, scores, k=512):
-    """The shifted boxes and valid mask batched_nms hands suppress, on the
-    CPU (its own set-up code, run with suppress recorded)."""
-    seen = []
-    real = nms.suppress
-
-    def record(shifted, valid, thr):
-        seen.append((shifted, valid))
-        return real(shifted, valid, thr)
-
-    nms.suppress = record
-    try:
-        nms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), pre_topk=k)
-    finally:
-        nms.suppress = real
-    return seen[0]
-
-
 def _suppress_against_plain(dev, shifted, valid, thr=0.7):
     before = nms.launches
     got = nms.suppress(shifted.to(dev), valid.to(dev), thr)
@@ -642,7 +660,7 @@ def test_nms_kernel_matches_plain(dev, seed):
     """One image of each kind at k = 512: clusters, IoU exactly at the
     threshold and one float32 step above, a 12-link chain, nothing above
     the floor, overflow."""
-    shifted, valid = _suppress_inputs(*nms_cases(seed))
+    shifted, valid = suppress_inputs(*nms_cases(seed))
     keep = _suppress_against_plain(dev, shifted, valid)
     thr = NMS_KINDS.index("threshold")
     assert keep[thr, :4].tolist() == [True, True, True, False]
@@ -651,12 +669,27 @@ def test_nms_kernel_matches_plain(dev, seed):
 
 @pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 100, 512, 1000, 1024])
 def test_nms_kernel_at_each_width(dev, k):
-    """k candidates a thread, over the instantiations of 1 to 32 words."""
+    """k candidates: one to 32 column blocks of the overlap grid, a
+    ragged last block, the fixed point's block from one warp to 32."""
     boxes, scores = nms_cases(k, na=max(k, 12))
-    shifted, valid = _suppress_inputs(boxes, scores, k)
+    shifted, valid = suppress_inputs(boxes, scores, k)
     assert shifted.shape[1] == k
     _suppress_against_plain(dev, shifted, valid)
     _suppress_against_plain(dev, shifted, valid, thr=0.3)
+
+
+@pytest.mark.parametrize("k,b", [(1025, 2), (2048, 2), (4096, 2), (ANCHORS, 1)])
+def test_nms_kernel_past_1024_candidates(dev, k, b):
+    """Thousands of valid, clustered candidates, up to the detector's
+    anchor count, against the plain version on the same CUDA tensors (its
+    dense (k, k) block fits on the card)."""
+    shifted, valid = suppress_inputs(*nms_wide_case(k, b=b, seed=k), k, device=dev)
+    assert shifted.shape == (b, k, 4) and int(valid.sum()) > 600 * b
+    before = nms.launches
+    got = nms.suppress(shifted, valid, 0.7)
+    want = nms.suppress_plain(shifted, valid, 0.7)
+    assert nms.launches == before + 1 and torch.equal(got, want)
+    assert 0 < int(want.sum()) < int(valid.sum())
 
 
 def test_nms_kernel_checks_its_inputs(dev):
@@ -665,11 +698,13 @@ def test_nms_kernel_checks_its_inputs(dev):
     for args in ((s.double(), v), (s, v.int()), (s[..., :3].contiguous(), v), (s, v.cpu())):
         with pytest.raises(ValueError, match="suppress takes"):
             nms.suppress(*args, 0.7)
-    with pytest.raises(ValueError, match="at most 1024"):
-        nms.suppress(torch.zeros(1, 1025, 4, device=dev), torch.ones(1, 1025, dtype=torch.bool, device=dev), 0.7)
     assert nms.suppress(torch.zeros(0, 8, 4, device=dev), torch.zeros(0, 8, dtype=torch.bool, device=dev),
                         0.7).shape == (0, 8)
     assert nms.launches == before
+    # any k runs on the card: 1025 candidates, past 32 words of overlap bits a candidate
+    boxes, scores = nms_cases(3, na=1100)
+    shifted, valid = suppress_inputs(boxes, scores, 1025)
+    _suppress_against_plain(dev, shifted, valid)
 
 
 def test_batched_nms_on_the_card_makes_no_host_sync(dev):
