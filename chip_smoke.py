@@ -66,9 +66,9 @@ Phases (any failure exits non-zero, nothing is caught):
    mapping, the table and the formatted records must equal the port's CPU
    Processor's on the same coordinates, and the mapping must split the
    players by kit; the files must parse back to them.  Prints the
-   Processor's stage milliseconds and the frames-to-files rate.  The
-   card's machine has no OpenCV, so decoding an .mp4, rendering and
-   annotated.mp4 are not run;
+   Processor's stage milliseconds and the frames-to-files rate.  The run
+   takes frames in memory: decoding an .mp4, rendering and annotated.mp4
+   are not run;
 6. tracker: the reference's tracker, OSNet-x0.25 ReID association and
    the features GMC (grid corners of the previous frame tracked by the
    same flow kernel at K = 240, a robust 4-DOF fit): (a) the kernel at
@@ -167,7 +167,25 @@ Phases (any failure exits non-zero, nothing is caught):
    24 frames (boundaries on both cadences) equal to (a)'s ``scan_chunk``;
    each rank's flow launches (counted around its run, > 0), its peak device
    memory and wall time, and the phase's; a failing rank fails the run;
-12. with ``--profile``: one more run of the slice (24 frames) under
+12. eval (after the prescale phase): (a) the eval CLI's body,
+   ``eagle_tpu_torch.evaluate.run``, with the slice model (the default
+   configuration: YOLOv8-l at 960 and HRNet-W48 at 540x960, bf16, seeded)
+   on 32 frames of 1280x720 of the port's synthetic scene
+   (``utils/synthetic.py``, drawn without OpenCV), run twice: the
+   ``results.json`` keys against the reference artifact's schema, one NMS
+   launch a ``_default_detector_fn`` call, and the metrics of the card's
+   predictions equal within 1e-12 to those of the same predictions as host
+   numpy arrays; each model's ms a frame, printed beside the card's name
+   and power limit; (b) runners that return the scene's truth: acc@2px and
+   F1@2 of 1.0 for both models and a box IoU of 1.0; (c) the acceptance
+   runner, ``validate_acceptance --dry-run --frames 2``, on the card: exit
+   0, the four gates PASS, gate C against ``cv2.findHomography`` where
+   OpenCV imports and the float64 DLT (``numpy_dlt``) where it does not;
+   then gate C alone with OpenCV hidden: PASS against ``numpy_dlt``; (d)
+   where OpenCV imports, the eval CLI's ``--video`` / ``--labels`` mode on
+   an mp4 of the scene written by ``io.write_video``, with the default
+   model built on the card;
+13. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
@@ -285,6 +303,8 @@ PRESCALE_LSB = 4
 CANVAS_BYTES = 544 * 960 * 3
 #: the stream phase's oracle clip, and the length of each served clip
 STREAM_REF_FRAMES = 24
+#: the eval phase's clip: the eval CLI's default frame count
+EVAL_FRAMES = 32
 SERVE_CLIP = 16
 #: the process phase's match (make_match): outfield players a team, drawn
 #: in the two kits of the JAX package's synthetic scenes (BGR red and
@@ -1945,10 +1965,11 @@ def phase_exact(frames, pts, slice_model, slice_res: dict, build_log: str) -> di
 
 
 def decoder_probe() -> str:
-    """Which video decoders and encoders this machine has, without OpenCV
-    (information, fails nothing): NVDEC's and NVENC's driver libraries, an
-    ``ffmpeg`` binary, and the Python modules ``torchvision.io``,
-    ``torchcodec`` and ``av`` (PyAV)."""
+    """Which video decoders and encoders this machine has (information,
+    fails nothing): NVDEC's and NVENC's driver libraries, an ``ffmpeg``
+    binary, and the Python modules ``torchvision.io``, ``torchcodec``, ``av``
+    (PyAV) and ``cv2`` (OpenCV, through which ``eagle_tpu_torch.io`` decodes;
+    found, not imported)."""
     import ctypes
     import importlib.util
     import shutil
@@ -1961,7 +1982,7 @@ def decoder_probe() -> str:
         except OSError:
             found[lib] = False
     found["ffmpeg"] = shutil.which("ffmpeg")
-    for mod in ("torchvision.io", "torchcodec", "av"):
+    for mod in ("torchvision.io", "torchcodec", "av", "cv2"):
         try:
             found[mod] = importlib.util.find_spec(mod) is not None
         except ImportError:  # the parent package is missing
@@ -2854,6 +2875,198 @@ def phase_prescale(model, frames) -> None:
           f"phase wall {time.perf_counter() - t0:.1f} s")
 
 
+def eval_oracle_runners(truth):
+    """Runners that return a scene's truth (``evaluate.synthetic_truth``)
+    as the eval CLI masks it: the landmarks in the frame and on the pitch
+    plane, every player's box with class 0, confidence 1 and valid
+    (float64, so that matched pairs are exact)."""
+    gt_kp, gt_valid, gt_boxes, _ = truth
+
+    def keypoints(frames):
+        b = len(frames)
+        return np.concatenate([gt_kp[:b], np.ones((b, 57, 1))], -1), gt_valid[:b]
+
+    def detections(frames):
+        b, p = len(frames), gt_boxes.shape[1]
+        return gt_boxes[:b], np.ones((b, p)), np.zeros((b, p), np.int32), np.ones((b, p), bool)
+
+    return keypoints, detections
+
+
+def results_mismatch(got: dict, want: dict) -> str | None:
+    """The first metric of two ``results.json`` dicts that differs by more
+    than 1e-12 (``time`` aside), or a key tree that differs."""
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items() for k, v in flat(sub, f"{prefix}{key}/").items()}
+        return {prefix[:-1]: tree}
+
+    g, w = flat(got), flat(want)
+    if g.keys() != w.keys():
+        return f"keys {sorted(g.keys() ^ w.keys())}"
+    for k in w:
+        if not k.endswith("/time") and abs(g[k] - w[k]) > 1e-12:
+            return f"{k}: {g[k]} against {w[k]}"
+    return None
+
+
+def eval_video(scene, truth) -> None:
+    """The eval CLI's ``--video`` / ``--labels`` mode on the card, where
+    OpenCV imports: the scene written as an mp4 by ``io.write_video`` (25
+    fps, every frame kept), labels from its truth, ``evaluate.main`` with
+    the default model built on the card; the decoded frames' shape and
+    their mean difference from the drawn ones (a lossy codec), the
+    results' keys, one NMS launch."""
+    import tempfile
+
+    from eagle_tpu_torch import evaluate
+    from eagle_tpu_torch.io.video import read_video_array, write_video
+    from eagle_tpu_torch.ops import nms
+
+    gt_kp, gt_valid, gt_boxes, _ = truth
+    labels = {
+        str(t): {
+            "keypoints": [[float(x), float(y), int(i)] for i, (x, y) in enumerate(gt_kp[t]) if gt_valid[t, i]],
+            "boxes": [[*map(float, b), 0] for b in gt_boxes[t]],
+        }
+        for t in range(len(scene.frames))
+    }
+    with tempfile.TemporaryDirectory() as d:
+        video, labels_path, out = (os.path.join(d, f) for f in ("scene.mp4", "labels.json", "results.json"))
+        write_video(scene.frames, video, 25)
+        with open(labels_path, "w") as f:
+            json.dump(labels, f)
+        decoded, _ = read_video_array(video, fps=25)
+        nms.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = evaluate.main(["--video", video, "--labels", labels_path, "--frames", str(len(scene.frames)),
+                                 "--out", out])
+        launches = nms.launches
+    if decoded.shape != scene.frames.shape:
+        fail(f"the mp4 decoded to {decoded.shape}, drawn {scene.frames.shape}")
+    diff = float(np.abs(decoded.astype(np.int16) - scene.frames).mean())
+    if diff > 8.0:
+        fail(f"the decoded frames differ from the drawn ones by {diff:.2f} levels on average")
+    if launches != 1 or sorted(res) != ["HRNet", "YOLO"] or "boxes" not in res["YOLO"]:
+        fail(f"evaluate --video: {launches} NMS launches, sections {sorted(res)}")
+    print(f"eval: --video/--labels on the card (OpenCV found): {len(decoded)} frames of an mp4 decoded "
+          f"(mean |decoded - drawn| {diff:.3f} levels), the default model built on the card, results.json "
+          f"written; YOLO.time {res['YOLO']['time'] * 1e3:.4f} ms a frame, HRNet.time "
+          f"{res['HRNet']['time'] * 1e3:.4f} ms a frame (first calls of a new model)")
+
+
+def phase_eval(model) -> None:
+    """The eval CLI's body and the acceptance runner on the card: (a)
+    ``evaluate.run`` with the slice model (full-width YOLOv8-l and
+    HRNet-W48, bf16, seeded) on EVAL_FRAMES frames of the port's synthetic
+    scene at 1280x720, twice: the results' keys against the artifact's
+    schema, one NMS launch a detector call, and the metrics of the card's
+    predictions equal to those of the same predictions as host numpy
+    arrays; ms a frame of each model, the first call with its cuDNN
+    set-up; (b) oracle runners (the scene's truth): perfect metrics; (c)
+    ``validate_acceptance`` in dry-run on the card: four PASS gates, gate C
+    against cv2 where OpenCV imports, else the float64 DLT; and gate C with
+    OpenCV hidden, against the float64 DLT; (d) where OpenCV imports,
+    :func:`eval_video`."""
+    import copy
+    import importlib.util
+    import tempfile
+
+    from eagle_tpu_torch import evaluate, validate_acceptance
+    from eagle_tpu_torch.ops import nms
+    from eagle_tpu_torch.utils.synthetic import make_scene
+
+    t0 = time.perf_counter()
+    scene = make_scene(num_frames=EVAL_FRAMES, width=1280, height=720, num_players=10)
+    truth = evaluate.synthetic_truth(scene)
+    schema = validate_acceptance.FALLBACK_SCHEMA
+    seen = {}
+    recorder = copy.copy(model)
+    recorder._keypoint_fn = lambda f: seen.setdefault("kp", model._keypoint_fn(f))
+    recorder._detector_fn = lambda f: seen.setdefault("det", model._detector_fn(f))
+    ms = []
+    for _ in range(2):
+        seen.clear()
+        nms.launches = 0
+        res = evaluate.run(recorder, scene.frames, *truth)
+        if nms.launches != 1:
+            fail(f"evaluate.run made {nms.launches} NMS launches for its one detector call")
+        for name in ("YOLO", "HRNet"):
+            if sorted(res[name]["metrics"]) != sorted(schema["metrics"]) or sorted(
+                res[name]["classification"]
+            ) != sorted(schema["classification"]):
+                fail(f"results.json's {name} keys differ from the reference artifact's schema")
+        if sorted(res) != ["HRNet", "YOLO"] or "boxes" not in res["YOLO"]:
+            fail(f"results.json has the sections {sorted(res)}")
+        kp, kp_valid = seen["kp"]
+        if kp.device.type != "cuda":
+            fail("the default keypoint runner's output is not on the card")
+        host = copy.copy(model)
+        host._keypoint_fn = lambda f: (kp.cpu().numpy(), kp_valid.cpu().numpy())
+        host._detector_fn = lambda f: seen["det"]
+        bad = results_mismatch(res, evaluate.run(host, scene.frames, *truth))
+        if bad:
+            fail(f"the metrics of the card's predictions differ from those of their host copies: {bad}")
+        ms.append((res["YOLO"]["time"] * 1e3, res["HRNet"]["time"] * 1e3))
+    n_pred = res["YOLO"]["boxes"]["num_pred"]
+    print(f"eval: {EVAL_FRAMES} frames of 1280x720 (utils/synthetic.py), YOLOv8-{model.detector_model.variant} @ "
+          f"{model.config.detector.image_size} and HRNet-W48 @ {model.config.keypoint.input_hw[0]}x"
+          f"{model.config.keypoint.input_hw[1]}, {'bf16' if model.config.keypoint.use_bf16 else 'float32'}, one "
+          f"runner call each over all frames: ms a frame "
+          f"YOLO.time {ms[0][0]:.4f} then {ms[1][0]:.4f}, HRNet.time {ms[0][1]:.4f} then {ms[1][1]:.4f} "
+          f"(first call with cuDNN's set-up); 1 NMS launch a detector call; {n_pred} person boxes scored; "
+          f"metrics on card tensors == on host numpy within 1e-12; {card_line()}")
+
+    keypoints, detections = eval_oracle_runners(truth)
+    oracle = copy.copy(model)
+    oracle._keypoint_fn, oracle._detector_fn = keypoints, detections
+    res = evaluate.run(oracle, scene.frames, *truth)
+    for name in ("YOLO", "HRNet"):
+        if res[name]["metrics"]["2"] != 1.0 or res[name]["classification"]["f1_2"] != 1.0:
+            fail(f"evaluate.run with oracle runners: {name} acc@2px {res[name]['metrics']['2']}, "
+                 f"F1@2 {res[name]['classification']['f1_2']} (want 1.0)")
+    if res["YOLO"]["boxes"]["mean_iou"] != 1.0:
+        fail(f"evaluate.run with oracle runners: box IoU {res['YOLO']['boxes']['mean_iou']} (want 1.0)")
+    print("eval: oracle runners: acc@2px 1.0 and F1@2 1.0 for both models, box IoU 1.0")
+
+    opencv = importlib.util.find_spec("cv2") is not None
+    if opencv:
+        eval_video(scene, truth)
+    # the runner as this machine has it (gate C against cv2 where OpenCV
+    # imports), then gate C again with OpenCV hidden (the float64 DLT)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "acceptance.json")
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = validate_acceptance.main(["--dry-run", "--frames", "2", "--out", out])
+        with open(out) as f:
+            gates = json.load(f)["gates"]
+        hidden = {"gates": {}}
+        saved = sys.modules.get("cv2")
+        sys.modules["cv2"] = None  # import cv2 raises ImportError
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                validate_acceptance.gate_c_pitch_rmse(validate_acceptance.Gate(hidden), d, 2, True, model.device)
+        finally:
+            if saved is None:
+                del sys.modules["cv2"]
+            else:
+                sys.modules["cv2"] = saved
+    status = {k: g["status"] for k, g in gates.items()}
+    if rc != 0 or set(status.values()) != {"PASS"} or len(status) != 4:
+        fail(f"validate_acceptance --dry-run on the card: exit {rc}, gates {status}\n{log.getvalue()}")
+    want = "cv2" if opencv else "numpy_dlt"
+    if gates["pitch_rmse"]["reference"] != want:
+        fail(f"gate C's reference is {gates['pitch_rmse']['reference']!r}, want {want!r} (OpenCV found: {opencv})")
+    dlt = hidden["gates"]["pitch_rmse"]
+    if dlt["status"] != "PASS" or dlt["reference"] != "numpy_dlt":
+        fail(f"gate C with OpenCV hidden: {dlt}")
+    print(f"eval: validate_acceptance --dry-run on the card: {status}; gate B mean IoU "
+          f"{gates['detector_iou']['mean_iou']}, gate C max RMSE {gates['pitch_rmse']['max_rmse_m']} m against "
+          f"{want} (OpenCV found: {opencv}); gate C with OpenCV hidden: {dlt['status']}, max RMSE "
+          f"{dlt['max_rmse_m']} m against numpy_dlt; phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of (start, end) microsecond intervals, in ms."""
     total, end = 0.0, -np.inf
@@ -2989,6 +3202,7 @@ def main() -> int:
     clips_entry = phase_multiclip(frames, pts, model)
     flow.update(phase_multidevice(model, frames, pts))
     phase_prescale(model, frames)
+    phase_eval(model)
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")

@@ -288,8 +288,10 @@ class CoordinateModel:
         self.ondemand_rounds = 0
         self._box_maps: dict = {}
 
+        # the default runners are bound as the JAX package binds them; every
+        # path of get_coordinates branches on the _custom_* flags instead
         self._custom_kp = keypoint_fn is not None
-        self._keypoint_fn = keypoint_fn
+        self._keypoint_fn = self._default_keypoint_fn if keypoint_fn is None else keypoint_fn
         self.keypoint_model = None
         if keypoint_fn is None:
             kcfg = cfg.keypoint
@@ -302,7 +304,7 @@ class CoordinateModel:
             self.keypoint_model = model.to(self.device).eval()
 
         self._custom_det = detector_fn is not None
-        self._detector_fn = detector_fn
+        self._detector_fn = self._default_detector_fn if detector_fn is None else detector_fn
         self.detector_model = None
         if detector_fn is None:
             dcfg = cfg.detector
@@ -544,6 +546,28 @@ class CoordinateModel:
         """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw under the model's
         seed, on its device (:func:`temporal.ransac_draws`)."""
         return temporal.ransac_draws(self.seed, cfg, self.device)
+
+    def _default_keypoint_fn(self, frames_bgr):
+        """Compatibility entry (the eval CLI, direct callers), as the JAX
+        package's: (B, H, W, 3) uint8 BGR at ORIGINAL resolution ->
+        ((B, 57, 3) [x, y, score], (B, 57) valid), tensors on the model's
+        device; one :meth:`run_keypoints` call with the identity geometry."""
+        frames = np.asarray(frames_bgr)
+        h, w = frames.shape[1:3]
+        packed = self.run_keypoints(upload_frames(frames, self.device), WorkGeometry(), (int(h), int(w)))
+        return packed[..., :3], packed[..., 3] > 0.5
+
+    def _default_detector_fn(self, frames_bgr):
+        """Compatibility entry (the eval CLI, direct callers), as the JAX
+        package's: (B, H, W, 3) uint8 BGR at ORIGINAL resolution -> numpy
+        (boxes (B, D, 4), conf (B, D), cls (B, D) int32, valid (B, D) bool);
+        one :meth:`run_detector` call with the identity geometry (one NMS
+        launch on the card) and one copy to the host."""
+        frames = np.asarray(frames_bgr)
+        h, w = frames.shape[1:3]
+        rows = self.run_detector(upload_frames(frames, self.device), WorkGeometry(), (int(h), int(w)))
+        packed = rows[..., :7].cpu().numpy()
+        return packed[..., :4], packed[..., 4], packed[..., 5].astype(np.int32), packed[..., 6] > 0.5
 
     def _custom_keypoints(self, frames: np.ndarray) -> np.ndarray:
         kp, valid = self._keypoint_fn(frames)

@@ -269,6 +269,25 @@ def test_upload_decodes_in_pieces_bit_equal_to_one_decode(monkeypatch):
     assert decoded == [cm.PIECE, 4]
 
 
+def test_processor_is_exported_at_the_top_level():
+    import eagle_tpu_torch
+    from eagle_tpu_torch.pipeline.processor import Processor
+
+    assert eagle_tpu_torch.Processor is Processor
+    assert "Processor" in eagle_tpu_torch.__all__
+
+
+def test_default_runners_are_bound_but_not_custom():
+    """Without injected callables the default runner entries are bound as
+    ``_keypoint_fn`` / ``_detector_fn`` (as the JAX package binds them),
+    and the flags every path branches on stay False."""
+    model = TModel(device="cpu")
+    assert model._keypoint_fn == model._default_keypoint_fn
+    assert model._detector_fn == model._default_detector_fn
+    assert not model._custom_kp and not model._custom_det
+    assert model._geometry((720, 1280)).enabled
+
+
 def test_default_device_is_the_card_without_fallback():
     """No card and no explicit device="cpu": construction raises."""
     if torch.cuda.is_available():
@@ -283,6 +302,7 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import eagle_tpu_torch
+import eagle_tpu_torch.evaluate
 import eagle_tpu_torch.main
 import eagle_tpu_torch.models.bridge
 import eagle_tpu_torch.models.osnet
@@ -292,6 +312,8 @@ import eagle_tpu_torch.ops.kmeans
 import eagle_tpu_torch.pipeline.multiclip
 import eagle_tpu_torch.pipeline.processor
 import eagle_tpu_torch.pipeline.transfer
+import eagle_tpu_torch.utils.synthetic
+import eagle_tpu_torch.validate_acceptance
 from eagle_tpu_torch.config import DEFAULT_CONFIG
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 for m in pkgutil.walk_packages(eagle_tpu_torch.__path__, "eagle_tpu_torch."):
@@ -350,6 +372,12 @@ assert len(voronoi_polygons([10, 50, 90], [20, 30, 40], [0, 1, 0])[0]) == 2
 balls = [[(10.0 + t, 20.0)] for t in range(12)]
 proc = Processor({0: {}}, frames[:1], 3, device="cpu")
 assert proc.parse_ball_detections_segmented(balls, segments=3) == proc.parse_ball_detections_with_kalman(balls)
+# the eval CLI's body on the OpenCV-free synthetic scene
+from eagle_tpu_torch import evaluate
+from eagle_tpu_torch.utils.synthetic import make_scene
+sc = make_scene(num_frames=2, width=160, height=96, num_players=3)
+scored = evaluate.run(plain, sc.frames, *evaluate.synthetic_truth(sc, (96, 160)))
+assert sorted(scored) == ["HRNet", "YOLO"], scored
 # the checkpoint writers chip_smoke.py uses, and chip_smoke.py itself
 import chip_smoke
 from tests.torch_parity import hrnet_reference_state_dict, yolov8_ultralytics_state_dict

@@ -20,7 +20,9 @@ as batched launches, with their input checks, and
 ``masked_auction`` / ``batched_nms`` on the card without a host sync; the
 multi-device layer: a one-rank NCCL group's runner, gather, halo and
 time-sharded scan, and gloo's host transport between two spawned ranks
-sharing the card.
+sharing the card; the eval CLI's entry points: the default detector runner
+at full width (one NMS launch a call, what ``run_detector`` gives) and
+``evaluate.run`` with oracle runners (perfect metrics).
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -28,7 +30,8 @@ imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a card every test skips.  Tolerances: status bit-equal; positions
+Without a card every test skips, but the one that checks that the eval
+CLI refuses to run on the CPU unasked.  Tolerances: status bit-equal; positions
 within 1e-2 px on tracked points (the bar tests/test_pallas_flow.py sets
 between the JAX package's two flow engines); assignments, round counts
 and keep masks bit-equal."""
@@ -815,3 +818,64 @@ def test_gloo_host_transport_under_two_spawned_ranks(dev, tmp_path):
         assert torch.equal(got["shift"], torch.full((3,), 1 - r, dtype=torch.float32))
         assert got["shift_device"].startswith("cuda")
         assert torch.equal(got["gather"], frames) and torch.equal(got["halo"], want_halo)
+
+
+# ---------------------------------------------------------------------------
+# the eval CLI's entry points: the model's default runners and evaluate.run
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def eval_scene():
+    from eagle_tpu_torch.utils.synthetic import make_scene
+
+    return make_scene(num_frames=16, width=1280, height=720, num_players=10)
+
+
+def test_default_detector_fn_is_one_nms_launch(dev, eval_scene):
+    """``_default_detector_fn`` on 16 frames of 1280x720 with the default
+    full-width model: one ``run_detector`` call (one NMS launch), and
+    what ``run_detector`` gives on the same frames."""
+    from eagle_tpu_torch.config import WorkGeometry
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    model = CoordinateModel(device="cuda")
+    frames = eval_scene.frames
+    model._default_detector_fn(frames[:2])  # warm-up
+    nms.launches = 0
+    boxes, conf, cls, valid = model._default_detector_fn(frames)
+    assert nms.launches == 1
+    rows = model.run_detector(of.upload_frames(frames, dev), WorkGeometry(), (720, 1280)).cpu().numpy()
+    np.testing.assert_array_equal(boxes, rows[..., :4])
+    np.testing.assert_array_equal(conf, rows[..., 4])
+    np.testing.assert_array_equal(cls, rows[..., 5].astype(np.int32))
+    np.testing.assert_array_equal(valid, rows[..., 6] > 0.5)
+    assert boxes.shape == (16, model.config.detector.max_detections, 4)
+
+
+def test_evaluate_run_with_oracle_runners_is_perfect(dev, eval_scene):
+    """Runners that return the scene's truth (``chip_smoke.py``'s) give
+    acc@2px and F1@2 of 1.0 for both models and a box IoU of 1.0."""
+    from chip_smoke import eval_oracle_runners
+    from eagle_tpu_torch import evaluate
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    truth = evaluate.synthetic_truth(eval_scene)
+    keypoints, detections = eval_oracle_runners(truth)
+    model = CoordinateModel(keypoint_fn=keypoints, detector_fn=detections, device="cuda")
+    res = evaluate.run(model, eval_scene.frames, *truth)
+    for name in ("YOLO", "HRNet"):
+        assert res[name]["metrics"]["2"] == 1.0 and res[name]["classification"]["f1_2"] == 1.0, name
+        assert res[name]["time"] > 0
+    assert res["YOLO"]["boxes"]["mean_iou"] == 1.0 and res["YOLO"]["boxes"]["f1"] == 1.0
+
+
+def test_evaluate_refuses_the_cpu_unless_asked(tmp_path):
+    """Without a card and without ``--device cpu`` the eval CLI raises; it
+    never runs on the CPU silently.  Runs where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from eagle_tpu_torch import evaluate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--frames", "1", "--out", str(tmp_path / "results.json")])
