@@ -67,8 +67,29 @@ Phases (any failure exits non-zero, nothing is caught):
    Processor's on the same coordinates, and the mapping must split the
    players by kit; the files must parse back to them.  Prints the
    Processor's stage milliseconds and the frames-to-files rate.  The run
-   takes frames in memory: decoding an .mp4, rendering and annotated.mp4
-   are not run;
+   takes frames in memory;
+5b. cli, where OpenCV imports: the CLI from an .mp4.  (a)
+   ``eagle_tpu_torch.main.main(["--video_path", ...])`` in this process
+   on the match written as a 48-frame 1280x720 mp4 by ``io.write_video``,
+   with oracle models keyed on the decoded frames: the four JSON files
+   bit-equal to ``main.run`` on ``read_video_array`` of the same file on
+   the card, within 1 px / 1 m of the CPU run (the metadata equal),
+   annotated.mp4 decoded back to 48 frames of 1280x720, and
+   ``--segment_frames 16`` bit-equal to the whole run, its lazy frame
+   source's opens and decoded frames counted; ms a frame of decode,
+   ``get_coordinates``, the Processor and the files, render plus encode.
+   (b) the CLI as users start it: the slice model's weights saved as
+   ``.msgpack`` files, then ``python -X importtime -m eagle_tpu_torch.main
+   --video_path --fps 24 --keypoint_weights --detector_weights
+   --num_homography 24 --profile`` (a homography every frame: see
+   ``CLI_HOMOGRAPHIES``)
+   as a child process from an empty directory (this checkout on
+   ``PYTHONPATH``), whole and with ``--segment_frames 16``: rc 0, the five
+   files, no JAX module imported, no kernel rebuilt, the four JSON files
+   bit-equal to ``main.run`` / ``main.run_streamed`` in this process with a
+   model built from the same files; the wall, the fps from the mp4 to the
+   files with and without the process start, the ``--profile`` stage table
+   and the in-process run's flow, auction and NMS launches;
 6. tracker: the reference's tracker, OSNet-x0.25 ReID association and
    the features GMC (grid corners of the previous frame tracked by the
    same flow kernel at K = 240, a robust 4-DOF fit): (a) the kernel at
@@ -306,6 +327,18 @@ STREAM_REF_FRAMES = 24
 #: the eval phase's clip: the eval CLI's default frame count
 EVAL_FRAMES = 32
 SERVE_CLIP = 16
+#: the cli phase's --segment_frames
+CLI_SEGMENT = 16
+#: the full-width CLI's --num_homography: a homography every frame.  With
+#: the seeded weights the keypoints are noise, and a homography fitted to
+#: them can project the image corners so close that the visible pitch's
+#: boundaries are undefined; when no frame has them, both packages'
+#: Processors raise KeyError('Bottom_Left') (the default, one a second, fits
+#: two in 48 frames)
+CLI_HOMOGRAPHIES = 24
+#: a fresh process's (cuDNN, cuBLAS) TF32 switches, read before this
+#: script turns them off: the cli phase's child processes run with them
+DEFAULT_TF32 = (True, False)
 #: the process phase's match (make_match): outfield players a team, drawn
 #: in the two kits of the JAX package's synthetic scenes (BGR red and
 #: blue), plus one goalkeeper a team (yellow, purple)
@@ -2075,7 +2108,6 @@ def phase_process(frames, pts):
     the same coordinates, the mapping against the drawn kits, the files
     parsed back; the Processor's stage milliseconds and the frames-to-files
     rate."""
-    import importlib.util
     import tempfile
 
     import torch
@@ -2147,8 +2179,312 @@ def phase_process(frames, pts):
     print(f"process: {len(card.crop_entries)} crops voted on the card == CPU votes; {len(mapping)} players in "
           f"{len(set(mapping.values()))} teams, split by kit, mapping == CPU; table {len(table)} rows x "
           f"{len(table.columns)} columns == CPU; {len(out['processed'])} formatted records")
+    print("process: frames in memory; the cli phase decodes an .mp4 and writes annotated.mp4")
+
+
+# ---------------------------------------------------------------------------
+# the CLI from an .mp4
+# ---------------------------------------------------------------------------
+
+
+def json_mismatch(got, want, atol: float, path: str = "$") -> str | None:
+    """The first difference between two parsed JSON trees: keys, lengths,
+    strings, booleans and integers equal; floats within ``atol``."""
+    if isinstance(want, float) or isinstance(got, float):
+        ok = isinstance(got, (int, float)) and isinstance(want, (int, float)) and (
+            abs(got - want) <= atol or (got != got and want != want))
+        return None if ok else f"{path}: {got!r} against {want!r}"
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            return f"{path}: keys differ"
+        return next((m for k in want if (m := json_mismatch(got[k], want[k], atol, f"{path}.{k}"))), None)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return f"{path}: lengths differ"
+        return next((m for i, (g, w) in enumerate(zip(got, want)) if (m := json_mismatch(g, w, atol, f"{path}[{i}]"))),
+                    None)
+    return None if type(got) is type(want) and got == want else f"{path}: {got!r} against {want!r}"
+
+
+JSON_FILES = ("metadata.json", "processed_data.json", "raw_coordinates.json", "raw_data.json")
+#: the Processor's and the writers' stages of a run's timer; "decode" and
+#: "render" are the CLI's; the rest is get_coordinates
+POST_STAGES = ("crops", "votes", "table", "merge", "format", "json")
+
+
+def json_bytes(out_dir: str) -> dict:
+    out = {}
+    for name in JSON_FILES:
+        with open(os.path.join(out_dir, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def same_files(got: dict, want: dict) -> list[str]:
+    """The names of the JSON files whose bytes differ."""
+    return [k for k in JSON_FILES if got[k] != want[k]]
+
+
+def stage_split(seconds: dict, n: int) -> dict:
+    """A CLI run's timer as ms a frame: decode, get_coordinates, the
+    Processor and the files, render plus encode."""
+    post = sum(seconds.get(k, 0.0) for k in POST_STAGES)
+    perception = sum(v for k, v in seconds.items() if k not in POST_STAGES + ("decode", "render"))
+    return {
+        "decode": seconds.get("decode", 0.0) * 1e3 / n,
+        "get_coordinates": perception * 1e3 / n,
+        "processor_and_files": post * 1e3 / n,
+        "render_and_encode": seconds.get("render", 0.0) * 1e3 / n,
+    }
+
+
+def counting_source(counts: dict):
+    """A :class:`VideoFrameSource` that counts in ``counts`` the times it
+    opens the file to decode ("opens": the first read and each step back)
+    and the frames it decodes ("decoded")."""
+    from eagle_tpu_torch.io.video import VideoFrameSource
+
+    class Counted(VideoFrameSource):
+        def __getitem__(self, i):
+            i = int(i) % len(self)
+            hit = i == self._cache_idx
+            opens = not hit and (self._cap is None or i * self.skip < self._next_raw)
+            start = 0 if opens else self._next_raw
+            frame = super().__getitem__(i)
+            if not hit:
+                counts["opens"] += opens
+                counts["decoded"] += self._next_raw - start
+            return frame
+
+    return Counted
+
+
+def cli_oracle(frames, pts, d: str):
+    """(a) ``eagle_tpu_torch.main.main`` in this process on the match of
+    :func:`make_match` written as an mp4, with oracle models keyed on the
+    decoded frames: the four files bit-equal to ``main.run`` on the decoded
+    frames on the card, and within the REF tolerances of the CPU run;
+    annotated.mp4 decoded back; ``--segment_frames`` bit-equal to the whole
+    run, with the lazy frame source's opens and decoded frames counted.
+    Returns (the mp4's path, its decoded frames)."""
+    from unittest import mock
+
+    import torch
+
+    import eagle_tpu_torch.io.video as video
+    from eagle_tpu_torch import main as cli
+    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    match, people, _ = make_match(frames)
+    mp4 = os.path.join(d, "match.mp4")
+    video.write_video(match, mp4, FPS)
+    decoded, _ = video.read_video_array(mp4, FPS)
+    if decoded.shape != match.shape:
+        fail(f"the match's mp4 decoded to {decoded.shape}, written {match.shape}")
+
+    def oracle(device=None, **_weights):
+        kp_fn, det_fn, _ = oracle_models(decoded, pts, people)
+        return CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device=device)
+
+    def main_in(sub: str, *flags):
+        os.makedirs(os.path.join(d, sub))
+        with contextlib.chdir(os.path.join(d, sub)), mock.patch.object(cli, "CoordinateModel", oracle), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            out = cli.main(["--video_path", mp4, "--fps", str(FPS), *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, wall, os.path.join(d, sub, "output", "match")
+
+    optical_flow.launches = 0
+    zero_loop_counts()
+    whole, wall, whole_dir = main_in("whole")
+    launches, loops = optical_flow.launches, loop_counts()
+    if sorted(os.listdir(whole_dir)) != sorted((*JSON_FILES, "annotated.mp4")):
+        fail(f"the CLI wrote {sorted(os.listdir(whole_dir))}")
+    if launches < len(decoded) - 1 or loops["auction"] < len(decoded) - 1:
+        fail(f"the CLI run of {len(decoded)} frames: lk_flow launches {launches}, {loop_line(loops)}")
+    files = json_bytes(whole_dir)
+    rendered, _ = video.read_video_array(os.path.join(whole_dir, "annotated.mp4"), FPS)
+    if rendered.shape != match.shape:
+        fail(f"annotated.mp4 decoded to {rendered.shape}, want {match.shape}")
+
+    mem_dir = os.path.join(d, "memory")
+    cli.run(decoded, FPS, mem_dir, oracle("cuda"), annotated=False)
+    bad = same_files(json_bytes(mem_dir), files)
+    if bad:
+        fail(f"the CLI's {bad} differ from main.run's on the decoded frames on the card")
+    cpu_dir = os.path.join(d, "cpu")
+    cli.run(decoded, FPS, cpu_dir, oracle("cpu"), annotated=False)
+    cpu_files = json_bytes(cpu_dir)
+    differ = same_files(cpu_files, files)
+    for name in differ:
+        bad = json_mismatch(json.loads(files[name]), json.loads(cpu_files[name]), 0.0 if name == "metadata.json" else 1.0)
+        if bad:
+            fail(f"the CLI's {name} on the card differs from the CPU run's: {bad}")
+
+    counts = {"opens": 0, "decoded": 0}
+    with mock.patch.object(video, "VideoFrameSource", counting_source(counts)):
+        streamed, stream_wall, stream_dir = main_in("streamed", "--segment_frames", str(CLI_SEGMENT))
+    bad = same_files(json_bytes(stream_dir), files)
+    if bad:
+        fail(f"--segment_frames {CLI_SEGMENT} wrote other {bad} than the whole run")
+    if not os.path.exists(os.path.join(stream_dir, "annotated.mp4")):
+        fail("the streamed CLI run wrote no annotated.mp4")
+
+    n = len(decoded)
+    split = {k: round(v, 4) for k, v in stage_split(whole["timer"].seconds, n).items()}
+    print(f"cli (a): main.main --video_path on a {n}-frame {match.shape[2]}x{match.shape[1]} mp4 with oracle "
+          f"models on the card: {wall:.3f} s = {n / wall:.2f} fps mp4 to the five files; ms a frame "
+          f"{json.dumps(split)}; lk_flow launches {launches}; {loop_line(loops)}")
+    print(f"cli (a): the four files == main.run on the decoded frames on the card (bytes); == the CPU run ("
+          f"{f'{differ} within 1 px / 1 m, the rest' if differ else 'all four'} bit-equal); annotated.mp4 "
+          f"decodes to {len(rendered)} frames of {rendered.shape[2]}x{rendered.shape[1]}; --segment_frames "
+          f"{CLI_SEGMENT} == whole (bytes), {stream_wall:.3f} s; its VideoFrameSource opened the file "
+          f"{counts['opens']} times and decoded {counts['decoded']} frames for the crops and the render of {n}")
+    return mp4, decoded
+
+
+def child_stage_table(stderr: str) -> dict:
+    """The ``--profile`` stage table (the last JSON object) of a CLI run's
+    standard error."""
+    start = stderr.rindex("\n{\n") + 1
+    return json.loads(stderr[start : stderr.index("\n}", start) + 2])
+
+
+def child_imports(stderr: str) -> list[str]:
+    """The modules a process imported, from ``python -X importtime``."""
+    names = []
+    for line in stderr.splitlines():
+        fields = line[len("import time:"):].split("|") if line.startswith("import time:") else []
+        if len(fields) == 3 and fields[0].strip().isdigit():  # not the header
+            names.append(fields[2].strip())
+    return names
+
+
+def cli_full_width(model, mp4: str, decoded, d: str) -> None:
+    """(b) The CLI as users start it, a process of its own, at full width:
+    the slice model's weights saved as ``.msgpack`` files, then ``python -m
+    eagle_tpu_torch.main --video_path --keypoint_weights --detector_weights
+    --profile`` from an empty working directory with this checkout on
+    ``PYTHONPATH`` (``-X importtime`` lists what it imports: no JAX), whole
+    and with ``--segment_frames``; each run's four files bit-equal to
+    ``main.run`` / ``main.run_streamed`` in this process with a model built
+    from the same two files (under the process's default TF32 settings, as
+    the child has them).  The kernels are built: the child must rebuild
+    none."""
+    import glob
+
+    import torch
+
+    from eagle_tpu_torch import main as cli
+    from eagle_tpu_torch.io.video import VideoFrameSource, iter_video
+    from eagle_tpu_torch.models.bridge import params_from_module
+    from eagle_tpu_torch.models.checkpoint import save_params
+    from eagle_tpu_torch.ops import optical_flow
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    kp_path, det_path = os.path.join(d, "keypoints.msgpack"), os.path.join(d, "detector.msgpack")
+    save_params(params_from_module(model.keypoint_model), kp_path)
+    save_params(params_from_module(model.detector_model), det_path)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    libs = sorted(glob.glob(os.path.join(optical_flow.BUILD_DIR, "*.so")))
+    stamp = {f: os.stat(f).st_mtime_ns for f in libs}
+    n = len(decoded)
+
+    def child(sub: str, *flags):
+        cwd = os.path.join(d, sub)
+        os.makedirs(cwd)
+        cmd = [sys.executable, "-X", "importtime", "-m", "eagle_tpu_torch.main", "--video_path", mp4, "--fps",
+               str(FPS), "--keypoint_weights", kp_path, "--detector_weights", det_path, "--num_homography",
+               str(CLI_HOMOGRAPHIES), "--profile", *flags]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"python -m eagle_tpu_torch.main {' '.join(flags)} exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                 f"{r.stderr[-6000:]}")
+        out_dir = os.path.join(cwd, "output", "match")
+        if sorted(os.listdir(out_dir)) != sorted((*JSON_FILES, "annotated.mp4")):
+            fail(f"the CLI process wrote {sorted(os.listdir(out_dir))}")
+        bad = sorted({m for m in child_imports(r.stderr) if m.split(".")[0] in ("jax", "jaxlib", "flax", "eagle_tpu")})
+        if bad:
+            fail(f"the CLI process imported {bad[:10]}")
+        return wall, child_stage_table(r.stderr), json_bytes(out_dir), len(child_imports(r.stderr))
+
+    wall, stages, files, n_imports = child("process_whole")
+    s_wall, s_stages, s_files, _ = child("process_streamed", "--segment_frames", str(CLI_SEGMENT))
+    rebuilt = [f for f in libs if os.stat(f).st_mtime_ns != stamp[f]]
+    if not libs or rebuilt:
+        fail(f"the CLI process rebuilt {rebuilt} of the built kernels {libs}")
+
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = DEFAULT_TF32
+    try:
+        ref = CoordinateModel(keypoint_checkpoint=kp_path, detector_checkpoint=det_path, device="cuda")
+        optical_flow.launches = 0
+        zero_loop_counts()
+        whole = cli.run(decoded, FPS, os.path.join(d, "ref_whole"), ref, num_homography=CLI_HOMOGRAPHIES,
+                        annotated=False)
+        launches, loops = optical_flow.launches, loop_counts()
+        cli.run_streamed(iter_video(mp4, FPS, CLI_SEGMENT), FPS, os.path.join(d, "ref_streamed"), ref,
+                         lambda k: VideoFrameSource(mp4, FPS, length=k), num_homography=CLI_HOMOGRAPHIES,
+                         annotated=False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    for got, sub in ((files, "ref_whole"), (s_files, "ref_streamed")):
+        bad = same_files(got, json_bytes(os.path.join(d, sub)))
+        if bad:
+            fail(f"the CLI process's {bad} differ from {sub} in this process with the same checkpoints")
+    if launches < n - 1 or loops["auction"] < n - 1 or loops["nms"] != -(-n // 16):
+        fail(f"the full-width run of {n} frames: lk_flow launches {launches}, {loop_line(loops)}")
+    coords = whole["coordinates"]
+    traffic = {
+        "boundaries": sum(fr["Boundaries"][0] is not None for fr in coords.values()),
+        "players": float(np.mean([len(fr["Coordinates"].get("Player", {})) for fr in coords.values()])),
+        "ball": sum(bool(fr["Coordinates"].get("Ball")) for fr in coords.values()),
+        "table": [len(whole["table"]), len(whole["table"].columns)],
+        "records": len(whole["processed"]),
+        "teams": len(set(whole["team_mapping"].values())),
+    }
+    total = sum(stages.values()) / 1e3
+    split = {k: round(v, 4) for k, v in stage_split({k: v / 1e3 for k, v in stages.items()}, n).items()}
+    print(f"cli (b): python -m eagle_tpu_torch.main --video_path ({n} frames of 1280x720, 24 fps) --keypoint_weights "
+          f"--detector_weights (.msgpack, {os.path.getsize(kp_path)} + {os.path.getsize(det_path)} B) "
+          f"--num_homography {CLI_HOMOGRAPHIES} --profile, a "
+          f"process on the card: rc 0, five files, {n_imports} modules imported, none of JAX; wall {wall:.3f} s = "
+          f"{n / wall:.2f} fps mp4 to files with the process start, {n / total:.2f} fps over its stages "
+          f"({total:.3f} s, decode to annotated.mp4); ms a frame {json.dumps(split)}; no kernel rebuilt "
+          f"({len(libs)} libraries)")
+    print(f"cli (b): --profile stage ms {json.dumps(stages)}")
+    print(f"cli (b): --segment_frames {CLI_SEGMENT}: wall {s_wall:.3f} s = {n / s_wall:.2f} fps; stage ms "
+          f"{json.dumps(s_stages)}")
+    print(f"cli (b): both processes' four files == main.run / main.run_streamed in this process with the same "
+          f"checkpoints (bytes); in-process run: lk_flow launches {launches}, {loop_line(loops)}; frames with "
+          f"boundaries, players a frame, frames with a ball, table, records, teams {json.dumps(traffic)}")
+
+
+def phase_cli(frames, pts, model) -> None:
+    """The CLI from an .mp4 on the card, where OpenCV imports: (a)
+    :func:`cli_oracle`, (b) :func:`cli_full_width`."""
+    import gc
+    import importlib.util
+    import tempfile
+
     if importlib.util.find_spec("cv2") is None:
-        print("process: no OpenCV on this machine: .mp4 decoding, rendering and annotated.mp4 not run")
+        print("cli: no OpenCV on this machine: the CLI from an .mp4 not run")
+        return
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp4, decoded = cli_oracle(frames, pts, d)
+        cli_full_width(model, mp4, decoded, d)
+    # the phase's runs leave reference cycles that hold device tensors (a
+    # second full-width model among them): free them now, or the stream
+    # phase's peak-memory readings count them
+    gc.collect()
+    print(f"cli: phase wall {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2720,6 +3056,8 @@ def md_rank(rank: int, size: int, work: str) -> None:
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
     from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
 
+    global DEFAULT_TF32
+    DEFAULT_TF32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{work}/gloo_store", rank=rank, world_size=size,
@@ -3180,6 +3518,8 @@ def main() -> int:
         print(f"chip_smoke: eagle_tpu_torch not importable ({e}); run from the repository root",
               file=sys.stderr)
         return 2
+    global DEFAULT_TF32
+    DEFAULT_TF32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3198,6 +3538,7 @@ def main() -> int:
     flow.update(tracker_fields)
     lap_entry = phase_exact(frames, pts, model, slice_res, build_log)
     phase_process(frames, pts)
+    phase_cli(frames, pts, model)
     flow.update(phase_stream(frames, pts, model, slice_res))
     clips_entry = phase_multiclip(frames, pts, model)
     flow.update(phase_multidevice(model, frames, pts))

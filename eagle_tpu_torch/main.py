@@ -44,12 +44,13 @@ def _post(coordinates, frames, fps, out_dir, model, smooth, annotated, timer) ->
         from eagle_tpu_torch.io.video import write_video
         from eagle_tpu_torch.utils.render import render_annotated_frames
 
-        rendered = iter(render_annotated_frames(table, frames, coordinates, team_mapping))
-        first = next(rendered, None)
-        if first is None:
-            print("No annotated frames to render (no detections); skipping annotated.mp4")
-        else:
-            write_video(itertools.chain([first], rendered), os.path.join(out_dir, "annotated.mp4"), fps)
+        with timer("render"):  # drawing and encoding, frame by frame
+            rendered = iter(render_annotated_frames(table, frames, coordinates, team_mapping))
+            first = next(rendered, None)
+            if first is None:
+                print("No annotated frames to render (no detections); skipping annotated.mp4")
+            else:
+                write_video(itertools.chain([first], rendered), os.path.join(out_dir, "annotated.mp4"), fps)
     return {
         "coordinates": coordinates,
         "table": table,
@@ -79,8 +80,9 @@ def run(
     is (N, H, W, 3) uint8 BGR; everything runs on ``model.device``.
     Returns {"coordinates", "table", "team_mapping", "processed",
     "processor", "timer"}; the timer holds the perception stages, the
-    Processor's (crops, votes, table, merge, format) and json; the
-    processor holds the crops' votes (``crop_entries``, ``crop_votes``)."""
+    Processor's (crops, votes, table, merge, format), json and, with
+    ``annotated``, render (drawing and encoding); the processor holds the
+    crops' votes (``crop_entries``, ``crop_votes``)."""
     frames = np.asarray(frames)
     timer = timer or StageTimer(model.device)
     coordinates = model.get_coordinates(
@@ -131,7 +133,23 @@ def run_streamed(
     return _post(coordinates, frame_source(len(coordinates)), fps, out_dir, model, smooth, annotated, timer)
 
 
-def main(argv=None) -> None:
+def _timed(segments, timer: StageTimer):
+    """``segments`` with the time each takes to arrive (its decode) added
+    to the timer's "decode" stage."""
+    it = iter(segments)
+    while True:
+        with timer("decode"):
+            block = next(it, None)
+        if block is None:
+            return
+        yield block
+
+
+def main(argv=None) -> dict:
+    """The CLI; returns what :func:`run` returns.  The timer (``--profile``)
+    also holds "decode": the whole clip's, or in a streamed run the
+    segments' as the stream pulls them (with a prefetch thread, alongside
+    the other stages)."""
     parser = ArgumentParser(description="Broadcast clip -> tracking data (PyTorch port)")
     parser.add_argument("--video_path", type=str, required=True)
     parser.add_argument("--fps", type=int, default=24)
@@ -186,24 +204,28 @@ def main(argv=None) -> None:
         calibration=args.calibration,
         smooth=args.smooth,
     )
+    timer = StageTimer(model.device)
     if args.segment_frames > 0:
         # frames are decoded block by block for perception, and again by
         # index for the Processor's crops and the render
         fps = args.fps
         out = run_streamed(
-            iter_video(args.video_path, fps, args.segment_frames),
+            _timed(iter_video(args.video_path, fps, args.segment_frames), timer),
             fps,
             root,
             model,
             lambda n: VideoFrameSource(args.video_path, fps, length=n),
+            timer=timer,
             **kw,
         )
     else:
-        frames, fps = read_video_array(args.video_path, args.fps)
-        out = run(frames, fps, root, model, **kw)
+        with timer("decode"):
+            frames, fps = read_video_array(args.video_path, args.fps)
+        out = run(frames, fps, root, model, timer=timer, **kw)
     if args.profile:
         print(out["timer"].report(), file=sys.stderr)
     print("Data saved to", root)
+    return out
 
 
 if __name__ == "__main__":

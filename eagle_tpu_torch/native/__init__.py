@@ -260,7 +260,7 @@ def crops_linear_u8c3(frames, frame_idx: np.ndarray, boxes: np.ndarray, grid_hw)
     gh, gw = grid_hw
     fi = np.ascontiguousarray(frame_idx, np.int32)
     ib = np.ascontiguousarray(boxes, np.int32).reshape(-1, 4)
-    first = np.asarray(frames[0])
+    first = np.asarray(frames[int(fi.min()) if len(fi) else 0])  # the first frame read: no step back
     h, w = first.shape[:2]
     if not (
         ((ib[:, 0] >= 0) & (ib[:, 1] >= 0) & (ib[:, 2] <= w) & (ib[:, 3] <= h)).all()

@@ -151,9 +151,12 @@ def gather_crops_host(frames, frame_idx: np.ndarray, boxes: np.ndarray, grid_hw=
     INTER_LINEAR)`` does, by the host C++
     (:func:`eagle_tpu_torch.native.crops_linear_u8c3`); fractional boxes
     take the float gather in numpy.  ``frames`` may be a list of frames or
-    an (F, H, W, 3) stack; a list is never stacked."""
+    an (F, H, W, 3) stack; a list is never stacked.  The size is read from
+    the first frame the crops read, not frame 0: a lazy source read in
+    batches of ascending frames then never steps back."""
     gh, gw = grid_hw
-    h, w = np.asarray(frames[0]).shape[:2]
+    frame_idx = np.asarray(frame_idx)
+    h, w = np.asarray(frames[int(frame_idx.min()) if len(frame_idx) else 0]).shape[:2]
     boxes = np.asarray(boxes, np.float32)
     ib = np.rint(boxes).astype(np.int64)
     if (

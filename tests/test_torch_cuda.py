@@ -22,7 +22,11 @@ multi-device layer: a one-rank NCCL group's runner, gather, halo and
 time-sharded scan, and gloo's host transport between two spawned ranks
 sharing the card; the eval CLI's entry points: the default detector runner
 at full width (one NMS launch a call, what ``run_detector`` gives) and
-``evaluate.run`` with oracle runners (perfect metrics).
+``evaluate.run`` with oracle runners (perfect metrics); the CLI from an
+.mp4 (``main.main --video_path``) with oracle runners of the port's
+synthetic scene: the card's four files against the CPU run's (within 1 px
+and 1 m, as ``chip_smoke.py``'s cli phase holds them; the team mapping
+equal).
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -879,3 +883,80 @@ def test_evaluate_refuses_the_cpu_unless_asked(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--frames", "1", "--out", str(tmp_path / "results.json")])
+
+
+# ---------------------------------------------------------------------------
+# the CLI from an .mp4
+# ---------------------------------------------------------------------------
+
+
+def _scene_runners(scene, decoded):
+    """Keypoint and detector runners that return the scene's truth for each
+    decoded frame, found by its content: the on-plane landmarks in view,
+    every player's box and the ball's."""
+    from eagle_tpu_torch import pitch
+
+    h, w = scene.frames.shape[1:3]
+    kp_img = scene.keypoints_image
+    seen = (kp_img[:, 0] >= 5) & (kp_img[:, 0] < w - 5) & (kp_img[:, 1] >= 5) & (kp_img[:, 1] < h - 5)
+    seen &= pitch.ON_PLANE_MASK
+    index = {f.tobytes(): i for i, f in enumerate(decoded)}
+    p = scene.player_boxes.shape[1]
+
+    def keypoints(batch):
+        kp = np.zeros((len(batch), 57, 3), np.float32)
+        kp[..., :2] = np.trunc(kp_img)
+        kp[..., 2] = 0.9
+        return kp, np.tile(seen, (len(batch), 1))
+
+    def detections(batch):
+        idx = [index[np.asarray(f).tobytes()] for f in batch]
+        b = len(idx)
+        boxes = np.zeros((b, 128, 4), np.float32)
+        cls = np.zeros((b, 128), np.int32)
+        valid = np.zeros((b, 128), bool)
+        boxes[:, :p] = scene.player_boxes[idx]
+        bx, by = scene.ball_image[idx].T
+        boxes[:, p] = np.stack([bx - 5, by - 10, bx + 5, by], -1)
+        cls[:, p] = 2
+        valid[:, : p + 1] = True
+        return boxes, np.where(valid, 0.9, 0.0).astype(np.float32), cls, valid
+
+    return keypoints, detections
+
+
+def test_cli_from_an_mp4_on_the_card_writes_the_cpu_run_files(dev, tmp_path, monkeypatch):
+    """``main.main(["--video_path", clip.mp4, ...])`` on the card and with
+    ``--device cpu``, the built-in models swapped for runners of the scene's
+    truth: the five files each, the flow kernel launched on the card, the
+    four JSON files of the card within the cli phase's tolerances of the
+    CPU run's, the metadata equal."""
+    from chip_smoke import json_mismatch
+    from eagle_tpu_torch import main as tmain
+    from eagle_tpu_torch.io.video import read_video_array, write_video
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from eagle_tpu_torch.utils.synthetic import make_scene
+
+    scene = make_scene(num_frames=24, width=640, height=360, num_players=8, fps=8, seed=3, pan_speed=1.0)
+    mp4 = str(tmp_path / "clip.mp4")
+    write_video(scene.frames, mp4, 8)
+    decoded, _ = read_video_array(mp4, 8)
+    keypoints, detections = _scene_runners(scene, decoded)
+    monkeypatch.setattr(tmain, "CoordinateModel", lambda device=None, **_weights: CoordinateModel(
+        keypoint_fn=keypoints, detector_fn=detections, device=device))
+    files = {}
+    for where, flags in (("card", []), ("cpu", ["--device", "cpu"])):
+        (tmp_path / where).mkdir()
+        monkeypatch.chdir(tmp_path / where)
+        before = of.launches
+        tmain.main(["--video_path", mp4, "--fps", "8", *flags])
+        assert (of.launches > before) == (where == "card")
+        out = tmp_path / where / "output" / "clip"
+        assert sorted(p.name for p in out.iterdir()) == sorted(
+            ["metadata.json", "processed_data.json", "raw_coordinates.json", "raw_data.json", "annotated.mp4"])
+        files[where] = {p.name: json.loads(p.read_text()) for p in out.glob("*.json")}
+    assert files["card"]["metadata.json"] == files["cpu"]["metadata.json"]
+    assert len(set(files["card"]["metadata.json"]["team_mapping"].values())) == 2
+    for name, want in files["cpu"].items():
+        assert want, name
+        assert json_mismatch(files["card"][name], want, 1.0) is None, name
