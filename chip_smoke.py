@@ -206,7 +206,13 @@ Phases (any failure exits non-zero, nothing is caught):
    where OpenCV imports, the eval CLI's ``--video`` / ``--labels`` mode on
    an mp4 of the scene written by ``io.write_video``, with the default
    model built on the card;
-13. with ``--profile``: one more run of the slice (24 frames) under
+13. bench: the port's end-to-end bench, ``python -m eagle_tpu_torch.bench
+   --reps 2``, as a child process (the four paths at full width on the
+   synthetic 1280x720 scene with the scene's truth behind every real
+   forward): exit 0, ``status`` "ok", every headline key, the card's name
+   in ``device``, and the flow, auction and NMS kernels launched on every
+   path (the JV kernel never); its headline printed;
+14. with ``--profile``: one more run of the slice (24 frames) under
    ``torch.profiler``, and one of the tracker's slice, each summarised per
    stage (device busy and idle share, host time blocked in synchronising
    calls) into a JSON file: the given one, and the same name with
@@ -329,6 +335,10 @@ EVAL_FRAMES = 32
 SERVE_CLIP = 16
 #: the cli phase's --segment_frames
 CLI_SEGMENT = 16
+#: the bench phase's timed reps and wall budget (seconds; the bench cuts
+#: reps, then its untimed runs, when the budget runs short)
+BENCH_REPS = 2
+BENCH_BUDGET_S = 150
 #: the full-width CLI's --num_homography: a homography every frame.  With
 #: the seeded weights the keypoints are noise, and a homography fitted to
 #: them can project the image corners so close that the visible pitch's
@@ -558,6 +568,8 @@ def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "laun
     the fullest one is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from eagle_tpu_torch.utils.profiling import trace_events
 
     best: dict | None = None
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -1103,6 +1115,8 @@ def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20, per
     on ends), or by CUDA events where no session traced one; fails unless
     each call launched once (``mod``'s ``count``) and ran no other device
     operation."""
+    from eagle_tpu_torch.utils.profiling import _union_ms
+
     tr = traced_flow(mod, call, reps, kernel=kernel, count=count)
     if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > per_call * reps:
         fail(f"{reps} {what} calls launched the kernel {tr['launched']} times and traced "
@@ -1932,6 +1946,7 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     from eagle_tpu_torch.ops import assignment as lap
     from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
+    from eagle_tpu_torch.utils.profiling import profile_stages
 
     model = CoordinateModel(config=exact_config(), seed=SEED, device="cuda")
     model.keypoint_model.load_state_dict(slice_model.keypoint_model.state_dict())
@@ -1965,7 +1980,7 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     profiled = {}
     for name, m in (("exact", model), ("auction", slice_model)):
         zero_loop_counts()
-        st, by_kernel = profile_stages(m, frames)
+        st, by_kernel, _ = profile_stages(m, frames, FPS, num_keypoint_detection=3)
         kernels = {kn: [v for k, v in by_kernel.items() if kn in k] for kn in ("lap_jv", "auction", "nms_suppress")}
         profiled[name] = (st, loop_counts(), {kn: (sum(c for c, _ in v), sum(ms for _, ms in v))
                                               for kn, v in kernels.items()})
@@ -3405,83 +3420,50 @@ def phase_eval(model) -> None:
           f"{dlt['max_rmse_m']} m against numpy_dlt; phase wall {time.perf_counter() - t0:.1f} s")
 
 
-def _union_ms(intervals) -> float:
-    """Length of the union of (start, end) microsecond intervals, in ms."""
-    total, end = 0.0, -np.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
-
-
-def trace_events(prof) -> list[dict]:
-    """The complete ("X") events of a finished ``torch.profiler`` run, read
-    back from its Chrome trace (written to and removed from the build
-    directory)."""
-    trace = os.path.join("build", "eagle_tpu_torch", "trace.json")
-    os.makedirs(os.path.dirname(trace), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    os.remove(trace)
-    return events
-
-
-def profile_stages(model, frames) -> tuple[dict, dict]:
-    """One run of the model's ``get_coordinates`` under ``torch.profiler``:
-    per stage, the wall time, the device's busy time (the union of the
-    kernels and copies that ran inside the stage's ranges) and idle share,
-    and the host's time blocked in synchronising calls and their count;
-    and every device operation's name -> (count, ms)."""
+def phase_bench() -> None:
+    """The bench, ``python -m eagle_tpu_torch.bench --reps BENCH_REPS``, as
+    a child process from this checkout: exit 0, a JSON headline as its last
+    stdout line with every key of ``bench.KEYS``, ``status`` "ok", the
+    card's name in ``device``, and on every path the flow, auction and NMS
+    kernels launched and the JV kernel not.  Prints the headline."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+    from eagle_tpu_torch import bench
 
-    timer = StageTimer(model.device, sync=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
-        torch.cuda.synchronize()
-    events = trace_events(prof)
-    ranges, device, blocking = {}, [], []
-    for e in events:
-        span = (e["ts"], e["ts"] + e["dur"])
-        if e.get("cat") == "user_annotation" and e["name"].startswith("stage:"):
-            ranges.setdefault(e["name"][len("stage:"):], []).append(span)
-        elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            device.append((span, e["name"]))
-        elif e.get("cat") == "cuda_runtime" and e["name"] in (
-            "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy"
-        ):
-            blocking.append(span)
-
-    def inside(spans, rs):
-        return [(max(a, r0), min(b, r1)) for a, b in spans for r0, r1 in rs if a < r1 and b > r0]
-
-    stages = {}
-    for name, rs in ranges.items():
-        wall = sum(b - a for a, b in rs) / 1e3
-        busy = _union_ms(inside([sp for sp, _ in device], rs))
-        stages[name] = {
-            "wall_ms": wall,
-            "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
-            "host_blocked_ms": _union_ms(inside(blocking, rs)),
-            "blocking_calls": len(inside(blocking, rs)),
-        }
-    by_kernel: dict = {}
-    for (a, b), name in device:
-        n, ms = by_kernel.get(name, (0, 0.0))
-        by_kernel[name] = (n + 1, ms + (b - a) / 1e3)
-    return stages, by_kernel
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "eagle_tpu_torch.bench", "--reps", str(BENCH_REPS), "--budget-s", str(BENCH_BUDGET_S)],
+        capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=BENCH_BUDGET_S + 120,
+    )
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    try:
+        head = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"the bench printed no headline (exit {r.returncode}):\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    if r.returncode != 0 or head.get("status") != "ok":
+        fail(f"the bench: exit {r.returncode}, status {head.get('status')!r}\n{r.stderr[-4000:]}")
+    missing = [k for k in bench.KEYS if k not in head]
+    if missing or any(head[m] is None or head[f"{m}_spread"] is None for m in bench.METRICS):
+        fail(f"the bench's headline lacks {missing} or a metric: {lines[-1]}")
+    if not isinstance(head["device"], dict) or head["device"]["kind"] != torch.cuda.get_device_name(0):
+        fail(f"the bench's device {head['device']!r} is not this card ({torch.cuda.get_device_name(0)})")
+    for path, counts in head["launches"].items():
+        if any(counts[k] <= 0 for k in bench.LAUNCHED) or any(counts[k] != 0 for k in bench.NOT_LAUNCHED):
+            fail(f"the bench's {path} path launched {counts}")
+    if sorted(head["launches"]) != sorted(bench.PATHS):
+        fail(f"the bench counted launches on {sorted(head['launches'])}, not {sorted(bench.PATHS)}")
+    print(f"bench: python -m eagle_tpu_torch.bench --reps {BENCH_REPS}: exit 0 in {wall:.1f} s of wall; its headline:")
+    print(f"bench: {lines[-1]}")
 
 
 def phase_profile(model, frames, out_path: str) -> None:
     """One more run of the slice under ``torch.profiler``
-    (:func:`profile_stages`).  Writes ``out_path`` (JSON) and prints one
-    summary line."""
-    stages, by_kernel = profile_stages(model, frames)
+    (``utils/profiling.py::profile_stages``).  Writes ``out_path`` (JSON)
+    and prints one summary line."""
+    from eagle_tpu_torch.utils.profiling import profile_stages
+
+    stages, by_kernel, _ = profile_stages(model, frames, FPS, num_keypoint_detection=3)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
     summary = {
         "frames": len(frames),
@@ -3544,6 +3526,7 @@ def main() -> int:
     flow.update(phase_multidevice(model, frames, pts))
     phase_prescale(model, frames)
     phase_eval(model)
+    phase_bench()
     if args.profile:
         phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")

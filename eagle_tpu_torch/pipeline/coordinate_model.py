@@ -163,12 +163,14 @@ class StageTimer:
     """Wall-clock seconds per stage; ``sync`` makes each stage end with a
     device synchronisation so the time lands where the work is.  Each span
     is also a ``torch.profiler`` range named ``stage:<name>``, so a trace
-    can attribute device time to the stages."""
+    can attribute device time to the stages.  ``counts``: the spans each
+    stage has closed."""
 
     def __init__(self, device: torch.device, sync: bool = False):
         self.device = device
         self.sync = sync
         self.seconds: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
 
     def __call__(self, name: str):
         timer = self
@@ -183,9 +185,22 @@ class StageTimer:
                 if timer.sync and timer.device.type == "cuda":
                     torch.cuda.synchronize(timer.device)
                 timer.seconds[name] = timer.seconds.get(name, 0.0) + time.perf_counter() - self.t0
+                timer.counts[name] = timer.counts.get(name, 0) + 1
                 self.range.__exit__(*exc)
 
         return _Span()
+
+    def summary(self) -> dict:
+        """{stage: {"total_s", "calls", "mean_ms"}}, largest total first
+        (the JAX package's ``StageTimer.summary``)."""
+        return {
+            name: {
+                "total_s": round(self.seconds[name], 4),
+                "calls": self.counts[name],
+                "mean_ms": round(1e3 * self.seconds[name] / max(1, self.counts[name]), 3),
+            }
+            for name in sorted(self.seconds, key=self.seconds.get, reverse=True)
+        }
 
     def report(self) -> str:
         """JSON of the stages' milliseconds, in the order they first ran."""
