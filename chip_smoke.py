@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, nothing is caught):
 
 1. build: the CUDA kernels (nvcc, sm_90a: the LK flow, the JV
-   assignment, the auction and NMS's suppression) and the host C++ (g++:
+   assignment, the auction, NMS's suppression, the RANSAC keys and the
+   DLT's eigen solve) and the host C++ (g++:
    the prescale and the float64 JV), in parallel, from the sources in this
    checkout;
 2. kernel: every kernel of the main path against its plain PyTorch
@@ -29,7 +30,12 @@ Phases (any failure exits non-zero, nothing is caught):
    auction 3 times a temporal step, its device-side round tally read
    after a synchronize, NMS once a 16-frame detector batch); the output
    must hold one dict per frame with the four keys; the bf16 models must
-   agree with their float32 selves on one batch;
+   agree with their float32 selves on one batch.  The wrappers count
+   through ``ops/launch_counts.py``: on the card's default path the step
+   is a captured graph, and each replay adds to device counters beside the
+   kernels it runs.  Then the slice once more under the profiler, counts
+   zeroed just before: every kernel's launch count must equal the device
+   kernels of its name in that trace, and the timed run's counts;
 4b. loops (the kernel phase's second half, after the slice: it needs the
    slice model): the device loops' kernels against their plain versions on
    the card.  The auction kernel (one block a matrix, every round inside
@@ -56,6 +62,26 @@ Phases (any failure exits non-zero, nothing is caught):
    ``get_coordinates`` of the slice model on 16 frames at
    ``nms_pre_topk=2048`` (one NMS launch a batch at that width) equals
    the same run at 512;
+4c. graph (after the loops): the temporal scan as the JAX package runs
+   it, one device program a ``chunk_frames`` chunk, here a captured CUDA
+   graph of the step replayed frame by frame
+   (``pipeline/step_graph.py``): (a) the 48-frame slice, (b) the 12-frame
+   oracle clip, (c) the slice with ``assignment="exact"``, each run
+   through the captured chunks and through the eager loop (the private
+   ``_temporal_path``) on the card: the two dicts bit-equal, the temporal
+   stage's ms a frame (synchronised) both ways, its blocking calls a frame
+   both ways and inside the chunks' replays (must be 0), the capture's
+   seconds and the launches a step, counted in the timed runs (a captured
+   step's 1 flow, 3 auction or JV, 1 keys and 2 eigen launches, and the
+   eager loop's flow and solver launches alike); the slice's traced run's
+   device kernels, busy ms and idle share a step; then the RANSAC keys kernel
+   (``csrc/threefry.cu``) bit-equal to its plain version at 512 x 57, and
+   the DLT's eigen-solve kernel (``csrc/eigh9.cu``) on the slice's own
+   normal matrices (512 hypotheses and the refit) against
+   ``torch.linalg.eigh`` up to sign, each with its device time, the plain
+   version's (and ``torch.linalg.eigh``'s) and the bound.  The slice phase
+   already ran through the captured chunks (the card's default) and counts
+   one keys and two eigen-solve launches a step;
 5. process: the CLI's function (``eagle_tpu_torch.main.run``) from 48
    host frames of a match (the slice's frames with 22 players in two kits
    and a ball drawn over them, oracle models that know them) to the four
@@ -237,6 +263,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -371,12 +398,47 @@ CLS_LOGIT_STD = 4.0
 #: one instruction (multiply, add or fused multiply-add) a lane a cycle,
 #: 132 SMs x 128 lanes x 1.98 GHz, is half that rate
 PEAK_BYTES_S = 3.35e12
+#: the H100 SXM's int32 rate outside the tensor cores: 64 lanes an SM (half
+#: the float32 lanes) x 132 SMs x 1.98 GHz
+PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
+#: float32 operations a second outside the tensor cores (the data sheet's 67
+#: TFLOP/s)
+PEAK_FP32_OPS_S = 67e12
+#: integer operations of one threefry2x32 hash (20 rounds of an add, a
+#: rotate (two shifts and an or) and a xor; 5 key injections of three adds;
+#: the two initial adds), and the keys kernel's per-element xor and shift
+KEYS_OPS_PER_HASH = 20 * 5 + 5 * 3 + 2
+#: float32 operations of one symmetric 9x9 eigenvector solve at the least:
+#: the tridiagonal reduction (4/3 n^3), its QR steps (~6 n^2) and the
+#: vector's back-transform (2 n^2)
+EIGH_OPS = 4 * 9**3 // 3 + 8 * 9**2
+#: the eigen-solve kernel against torch.linalg.eigh up to sign, on matrices
+#: whose two smallest eigenvalues lie EIGH_GAP of the largest apart
+#: (float32 eigenvectors then hold ~1e-4: 6e-8 / 1e-3, cuSOLVER's
+#: rounding), and its residual |A v - lambda v| / |A| (float64) on all
+EIGH_GAP = 1e-3
+EIGH_ATOL = 1e-3
+EIGH_RESID = 1e-4
 PEAK_F32_INSTR_S = 33.5e12
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+class _LaunchCounts:
+    """``eagle_tpu_torch.ops.launch_counts``, imported at first use: the
+    script starts, and refuses to run, where the package is not."""
+
+    def __getattr__(self, name):
+        from eagle_tpu_torch.ops import launch_counts
+
+        return getattr(launch_counts, name)
+
+
+#: the kernels' launch counts (every wrapper counts through this registry)
+lc = _LaunchCounts()
 
 
 def card_line() -> str:
@@ -458,7 +520,7 @@ def phase_build() -> str:
     returns the CUDA kernels' compiler output (``-Xptxas -v``; empty for a
     library already built in this checkout)."""
     from eagle_tpu_torch import native
-    from eagle_tpu_torch.ops import assignment, nms, optical_flow
+    from eagle_tpu_torch.ops import assignment, eigh, nms, optical_flow, prng
 
     t0 = time.perf_counter()
     errors = []
@@ -476,6 +538,8 @@ def phase_build() -> str:
         threading.Thread(target=run, args=(lambda: assignment.build(verbose=True),)),
         threading.Thread(target=run, args=(lambda: assignment.build_auction(verbose=True),)),
         threading.Thread(target=run, args=(lambda: nms.build(verbose=True),)),
+        threading.Thread(target=run, args=(lambda: prng.build(verbose=True),)),
+        threading.Thread(target=run, args=(lambda: eigh.build(verbose=True),)),
     ]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):  # the verbose builds print their compiler output
@@ -551,17 +615,21 @@ def flow_input(frames, pts):
     return canvas[0], canvas[1], p, valid
 
 
-#: profiler sessions tried before a flow timing falls back to CUDA events
+#: profiler sessions tried before a flow timing falls back to CUDA events,
+#: and runs of a main path traced before its traced launches must equal
+#: its counted ones
 TRACE_ATTEMPTS = 3
+#: the kernels a temporal step launches, by the names their launches count
+#: under
+STEP_KERNELS = ("lk_flow", "auction", "lap_jv", "ransac_keys", "eigh9")
 
 
-def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "launches") -> dict:
+def traced_flow(call, reps: int, kernel: str = "lk_flow", count: str = "lk_flow") -> dict:
     """``reps`` calls of ``call()`` under ``torch.profiler``: the device
     operations in the trace (kernels, copies and sets), the durations (us)
     and (start, end) spans of the flow kernels among them (every kernel
-    whose name holds ``kernel``), and the launches the wrapper module ``of`` counted
-    meanwhile in its attribute ``count`` (``lap_jv``: the assignment
-    module and its kernel).  On the H100 the profiler
+    whose name holds ``kernel``), and the launches counted meanwhile
+    under ``count`` (``launch_counts``).  On the H100 the profiler
     has been seen to miss one launch of 20, and once to trace no device
     activity at all in a session: a trace that holds fewer flow kernels
     than were launched is taken again, up to TRACE_ATTEMPTS sessions, and
@@ -573,12 +641,12 @@ def traced_flow(of, call, reps: int, kernel: str = "lk_flow", count: str = "laun
 
     best: dict | None = None
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        launches0 = getattr(of, count)
+        launches0 = lc.get(count)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
-        launched = getattr(of, count) - launches0
+        launched = lc.get(count) - launches0
         ops = [e for e in trace_events(prof) if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         mine = [e for e in ops if e["cat"] == "kernel" and kernel in e["name"]]
         flow = [e["dur"] for e in mine]
@@ -597,9 +665,7 @@ def flow_step_timing(of, prev, curr, p, valid, reps: int = 20) -> dict:
     operations traced, and the flow kernel's device time a launch, the
     mean over the traced ones; the wall of a call by CUDA events.  Where no
     session traced a flow kernel, the kernel's time is the call's time by
-    CUDA events (``kernel_timed_by``).  Works on any version of
-    ``eagle_tpu_torch.ops.optical_flow`` with ``lk_flow`` and a
-    ``launches`` count."""
+    CUDA events (``kernel_timed_by``)."""
     import torch
 
     def call():
@@ -607,7 +673,7 @@ def flow_step_timing(of, prev, curr, p, valid, reps: int = 20) -> dict:
 
     call()
     torch.cuda.synchronize()
-    tr = traced_flow(of, call, reps)
+    tr = traced_flow(call, reps)
     wall = cuda_ms(call, reps=100, warmup=5)
     flow = tr["flow"]
     return {
@@ -642,10 +708,10 @@ def flow_against_plain(of, prev, curr, p, valid) -> tuple[float, np.ndarray]:
     import torch
 
     k = p.shape[0]
-    launches0 = of.launches
+    launches0 = lc.get("lk_flow")
     g_k, s_k = of.lk_flow(prev, curr, p, valid)
     torch.cuda.synchronize()
-    if of.launches != launches0 + 1:
+    if lc.get("lk_flow") != launches0 + 1:
         fail("lk_flow on CUDA tensors did not launch the kernel")
     g_p, s_p = of.lk_flow_plain(prev, curr, p, valid)
     torch.cuda.synchronize()
@@ -693,11 +759,11 @@ def phase_kernel(frames, pts):
     from eagle_tpu_torch.ops import optical_flow as of
 
     prev, curr, p, valid = flow_input(frames, pts)
-    launches0 = of.launches
+    saved = lc.snapshot()
     err, s_p = flow_against_plain(of, prev, curr, p, valid)
     print(f"kernel lk_flow: K={p.shape[0]} ok={int(s_p.sum())} max |kernel - plain| = {err:.3e} px")
     t = flow_times(of, prev, curr, p, valid)
-    of.launches = launches0  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     step, ms = t["step"], t["step"]["flow_kernel_ms"]
     seen = check_flow_step(step, "at K = 57")
     print(f"kernel lk_flow: {ms:.4f} ms device time a launch, one launch a call ({seen}), call "
@@ -960,11 +1026,39 @@ def spread_weights(model, frames, seed: int = SEED) -> tuple[float, float]:
     return hi, kept(hi)
 
 
+def traced_run(model, frames, what: str, **kw):
+    """One run of a main path, ``model.get_coordinates(frames, FPS, **kw)``
+    under the profiler (``profile_stages``), with every count zeroed just
+    before it: fails unless each hand-written kernel's launch count equals
+    the device kernels of its name in the trace (``bench.TRACED``, one a
+    launch).  The profiler has been seen to miss a launch: a trace that
+    holds fewer is taken again, up to TRACE_ATTEMPTS runs; one that holds
+    more fails at once.  Returns ({kernel: launches}, the rounds and NMS
+    launches (:func:`loop_counts`), the ``StageProfile``, the temporal
+    steps, the runs taken)."""
+    from eagle_tpu_torch.bench import TRACED
+    from eagle_tpu_torch.utils.profiling import profile_stages
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        zero_loop_counts()
+        stepped0 = model.frames_stepped
+        prof = profile_stages(model, frames, FPS, **kw)
+        loops = loop_counts()
+        counted = {k: lc.get(k) for k in TRACED}
+        traced = {k: sum(c for name, (c, _) in prof.kernels.items() if re.search(pat, name))
+                  for k, pat in TRACED.items()}
+        if any(traced[k] > counted[k] for k in TRACED):
+            fail(f"{what}, traced: the trace holds {traced} device kernels, more than the {counted} launches counted")
+        if traced == counted:
+            return counted, loops, prof, model.frames_stepped - stepped0, attempt
+    fail(f"{what}, traced: the trace holds {traced} device kernels, the counts {counted} launches "
+         f"({TRACE_ATTEMPTS} runs)")
+
+
 def phase_slice(frames):
     import torch
 
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import optical_flow
     from eagle_tpu_torch.pipeline.coordinate_model import PIECE, CoordinateModel, StageTimer
 
     cfg = DEFAULT_CONFIG
@@ -985,15 +1079,15 @@ def phase_slice(frames):
     torch.cuda.synchronize()
 
     timer = StageTimer(model.device, sync=True)
-    optical_flow.launches = 0
     zero_loop_counts()
     stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = optical_flow.launches
+    launches = lc.get("lk_flow")
     loops, stepped = loop_counts(), model.frames_stepped - stepped0
+    loops["keys"], loops["eigh9"] = lc.get("ransac_keys"), lc.get("eigh9")
 
     if sorted(res) != list(range(len(frames))):
         fail("get_coordinates did not return one entry per frame")
@@ -1008,6 +1102,9 @@ def phase_slice(frames):
     if loops["auction"] != 3 * stepped or not loops["rounds"] or loops["nms"] != -(-len(frames) // PIECE):
         fail(f"the slice's {stepped} temporal steps over {len(frames)} frames: {loop_line(loops)}; expected 3 "
              f"auction launches a step and one nms launch a {PIECE}-frame detector batch")
+    if loops["keys"] != stepped or loops["eigh9"] != 2 * stepped:
+        fail(f"the slice's {stepped} captured temporal steps launched the keys kernel {loops['keys']} times and the "
+             f"eigen solve {loops['eigh9']} times; expected one and two a step")
     n_kp = np.mean([len(fr["Keypoints"]) for fr in res.values()])
     n_h = sum(fr["Boundaries"][0] is not None for fr in res.values())
     n_obj = np.mean([sum(len(o) for o in fr["Coordinates"].values()) for fr in res.values()])
@@ -1016,13 +1113,312 @@ def phase_slice(frames):
     n_valid, n_kept = detections_per_frame(model, model.upload(frames, model._geometry(FRAME_HW)))
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"slice: {len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.2f} fps; "
-          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}; {loop_line(loops)} for {stepped} temporal "
-          f"steps")
+          f"stage ms {json.dumps(stages)}; lk_flow launches {launches}; {loop_line(loops)}; keys launches "
+          f"{loops['keys']}, eigh9 launches {loops['eigh9']} for {stepped} temporal steps")
+    timed = {"lk_flow": launches, "auction": loops["auction"], "nms": loops["nms"], "ransac_keys": loops["keys"],
+             "eigh9": loops["eigh9"], "lap_jv": lc.get("lap_jv")}
+    counted, traced_loops, prof, traced_steps, runs = traced_run(model, frames, "slice", num_keypoint_detection=3)
+    if counted != timed or traced_steps != stepped or traced_loops["rounds"] != loops["rounds"]:
+        fail(f"the slice's traced run counted {counted} launches ({traced_loops['rounds']} device rounds) in "
+             f"{traced_steps} temporal steps, the timed run {timed} ({loops['rounds']}) in {stepped}")
+    print(f"slice, traced: launches counted == device kernels in the trace == the timed run's {json.dumps(counted)} "
+          f"({runs} traced run(s))")
     print(f"slice traffic, means a frame: detections entering the tracker {n_valid:.2f} "
           f"(kept at the keep threshold {n_kept:.2f}); objects reported {n_obj:.2f}, of which "
           f"tracked players and goalkeepers {n_tracked:.2f}; keypoints {n_kp:.2f}; frames with "
           f"boundaries {n_h}")
-    return launches, model, res, loops
+    return launches, model, res, loops, (prof, traced_steps)
+
+
+# ---------------------------------------------------------------------------
+# the temporal scan as captured chunks: the step graph, the RANSAC keys
+# kernel and the DLT's eigen solve
+# ---------------------------------------------------------------------------
+
+
+def temporal_syncs(model, frames, **kw) -> dict:
+    """Two more ``get_coordinates`` of the model: one with a ``StageTimer``
+    that counts the synchronising calls inside its ``temporal`` spans (the
+    scan's uploads, replays or steps, and drains; not the on-demand
+    keypoint runs, which time as ``keypoints``), one with every chunk's
+    replays (``StepGraph.run_chunk``) counted by :func:`host_syncs`:
+    {"stage": the first, "replays": the second}."""
+    import warnings
+
+    import torch
+
+    from eagle_tpu_torch.pipeline import step_graph
+    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+
+    host_syncs(lambda: None)  # fails unless the debug mode reports a known sync
+    counts = {"stage": 0, "replays": 0}
+
+    class Counting(StageTimer):
+        def __call__(self, name):
+            span = super().__call__(name)
+            if name != "temporal":
+                return span
+
+            class Counted:
+                def __enter__(self):
+                    span.__enter__()
+                    self.caught = warnings.catch_warnings(record=True)
+                    self.seen = self.caught.__enter__()
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+
+                def __exit__(self, *exc):
+                    torch.cuda.set_sync_debug_mode("default")
+                    self.caught.__exit__(*exc)
+                    counts["stage"] += sum("synchroniz" in str(w.message) for w in self.seen)
+                    span.__exit__(*exc)
+
+            return Counted()
+
+    model.get_coordinates(frames, FPS, timer=Counting(model.device), **kw)
+    real_chunk = step_graph.StepGraph.run_chunk
+
+    def chunk(self, *a, **k):
+        out = []
+        counts["replays"] += host_syncs(lambda: out.append(real_chunk(self, *a, **k)))
+        return out[0]
+
+    step_graph.StepGraph.run_chunk = chunk
+    try:
+        model.get_coordinates(frames, FPS, **kw)
+    finally:
+        step_graph.StepGraph.run_chunk = real_chunk
+    return counts
+
+
+def graph_against_eager(model, frames, what: str, **kw) -> dict:
+    """``model.get_coordinates(frames, FPS, **kw)`` through the captured
+    chunks and through the eager loop (the private ``_temporal_path``), each
+    after a warm-up run (the graph's capture, cuDNN's choices): fails
+    unless the two dicts are equal.  Returns the temporal stage's ms a frame
+    (a synchronised ``StageTimer``), its blocking calls a frame, the syncs
+    inside the chunks' replays, the capture's seconds and the launches a
+    temporal step, counted in the timed runs: fails unless a captured step
+    (device counters, added by the replays) launched one flow, three
+    auction (or JV), one keys and two eigen-solve kernels, and the eager
+    loop (host counts, added by each launch) as many flow and solver
+    kernels a step (its RANSAC runs only on the frames that solve)."""
+    import torch
+
+    from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
+
+    out, res, per_step = {}, {}, {}
+    for path in ("chunks", "frames"):
+        model._temporal_path = path
+        try:
+            model.get_coordinates(frames, FPS, **kw)  # warm-up (and the capture)
+            torch.cuda.synchronize()
+            timer = StageTimer(model.device, sync=True)
+            lc.reset()
+            stepped0 = model.frames_stepped
+            res[path] = model.get_coordinates(frames, FPS, timer=timer, **kw)
+            steps = model.frames_stepped - stepped0
+            per_step[path] = {k: n / steps for k in STEP_KERNELS if (n := lc.get(k))}
+            syncs = temporal_syncs(model, frames, **kw)
+        finally:
+            model._temporal_path = None
+        out[path] = {"temporal_ms_per_frame": 1e3 * timer.seconds["temporal"] / len(frames),
+                     "blocking_calls_per_frame": syncs["stage"] / len(frames), "replay_syncs": syncs["replays"]}
+    if res["chunks"] != res["frames"]:
+        bad = next(i for i in res["frames"] if res["chunks"].get(i) != res["frames"][i])
+        fail(f"graph: {what}: the captured chunks differ from the eager loop at frame {bad}")
+    if out["chunks"]["replay_syncs"]:
+        fail(f"graph: {what}: {out['chunks']['replay_syncs']} synchronising calls inside the chunks' replays")
+    solver = "lap_jv" if model.config.tracker.assignment == "exact" else "auction"
+    want = {"lk_flow": 1.0, solver: 3.0, "ransac_keys": 1.0, "eigh9": 2.0}
+    if per_step["chunks"] != want or any(per_step["chunks"][k] != per_step["frames"].get(k) for k in ("lk_flow", solver)):
+        fail(f"graph: {what}: launches a temporal step {per_step['chunks']} in the captured chunks (expected {want}), "
+             f"{per_step['frames']} in the eager loop (the same flow and {solver} launches)")
+    graphs = [g for g in model._step_graphs.values() if g.graph is not None]
+    print(f"graph: {what}: captured chunks == eager loop ({len(frames)} frames); temporal ms a frame "
+          f"{out['chunks']['temporal_ms_per_frame']:.3f} captured, {out['frames']['temporal_ms_per_frame']:.3f} "
+          f"eager; blocking calls in the temporal stage a frame {out['chunks']['blocking_calls_per_frame']:.4f} "
+          f"captured, {out['frames']['blocking_calls_per_frame']:.4f} eager; syncs inside the replays "
+          f"{out['chunks']['replay_syncs']}; capture {graphs[-1].capture_s:.3f} s; launches a step, counted in "
+          f"the timed runs: captured {per_step['chunks']}, eager {per_step['frames']} (RANSAC only on the frames "
+          f"that solve)")
+    return out
+
+
+def graph_profile(traced) -> None:
+    """The slice's temporal stage through the captured chunks in the slice's
+    traced run (:func:`traced_run`, ``utils/profiling.py::profile_stages``):
+    device kernels a step, device-busy ms a step, the idle share and the
+    host's calls that may block (and those that wait)."""
+    prof, steps = traced
+    st, kernels = prof.stages["temporal"], prof.stage_kernels["temporal"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"graph: slice, profiled: {steps} captured steps, {sum(kernels.values()) / steps:.1f} device kernels a "
+          f"step ({len(kernels)} names; most frequent {[(k[:48], n) for k, n in top]}), device busy "
+          f"{st['device_busy_ms'] / steps:.4f} ms a step, temporal stage {st['wall_ms']:.3f} ms, idle "
+          f"{st['device_idle_share']:.4f}, {st['blocking_calls']} blocking calls ({st['waiting_calls']} but the "
+          f"copies from the card to the card)")
+
+
+def keys_kernel() -> dict:
+    """The RANSAC keys kernel at the main path's shape (512 x 57) against
+    its plain version on the same CUDA scalar ``t``, bit-equal at several
+    seeds and frames; its device time, the plain version's and the
+    bound."""
+    import torch
+
+    from eagle_tpu_torch import DEFAULT_CONFIG
+    from eagle_tpu_torch.ops import prng
+
+    iters = DEFAULT_CONFIG.homography.ransac_iters
+    saved = lc.snapshot()
+    for seed, step in ((0, 0), (0, 47), (7, 10**6), (2**31 + 3, 2**33 + 5)):
+        t_ = torch.tensor(step, device="cuda")
+        if not torch.equal(prng.ransac_keys_cuda(seed, t_, iters, 57), prng.ransac_keys_plain(seed, t_, iters, 57)):
+            fail(f"the keys kernel differs from its plain version at seed {seed}, t {step}")
+    t_ = torch.tensor(47, device="cuda")
+    ms, how = kernel_ms(lambda: prng.ransac_keys_cuda(SEED, t_, iters, 57), "ransac_keys", "ransac_keys",
+                        "ransac_keys")
+    plain = cuda_ms(lambda: prng.ransac_keys_plain(SEED, t_, iters, 57))
+    lc.restore(saved)  # comparison launches are not main-path launches
+    n = iters * 57
+    nbytes = 4 * n + 8
+    ops = KEYS_OPS_PER_HASH * (n + 1) + 2 * n
+    bound_b, bound_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_INT32_OPS_S * 1e3
+    print(f"graph: keys kernel ({iters} x 57) bit-equal to its plain version; {ms:.4f} ms a launch ({how}), plain "
+          f"{plain:.4f} ms; bound {max(bound_b, bound_o) * 1e3:.4f} us ({nbytes} B; {ops} int32 operations)")
+    return {
+        "name": "ransac_keys",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/threefry.cu",
+        "replaces": "eagle_tpu/ops/homography.py:128 (jax.random.gumbel + top_k's draw in the scan program)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(bound_b, bound_o),
+        "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "library_ms": None,
+        "shape": [iters, 57],
+    }
+
+
+def eigh_inputs(model, frames) -> list:
+    """The DLT's normal matrices of one eager step's RANSAC on the card at
+    the main path's shapes: [(512, 9, 9) the hypotheses', (9, 9) the
+    refit's], recorded from a 2-frame run of the slice model with a
+    homography every frame."""
+    from eagle_tpu_torch.ops import homography
+
+    seen, real = [], homography.smallest_eigenvector
+
+    def record(a):
+        seen.append(a.clone())
+        return real(a)
+
+    homography.smallest_eigenvector = record
+    model._temporal_path = "frames"
+    try:
+        model.get_coordinates(frames[:2], FPS, num_homography=FPS, num_keypoint_detection=FPS)
+    finally:
+        homography.smallest_eigenvector = real
+        model._temporal_path = None
+    big = next((a for a in seen if a.dim() == 3), None)
+    one = next((a for a in seen if a.dim() == 2), None)
+    if big is None or one is None:
+        fail("graph: the slice's RANSAC made no eigen solve to record")
+    return [big.contiguous(), one.contiguous()]
+
+
+def eigh_kernel(model, frames) -> dict:
+    """The eigen-solve kernel on the slice's own DLT normal matrices (the
+    512 hypotheses' and the refit's) against its plain version
+    (``torch.linalg.eigh`` on the same CUDA tensors), up to sign, on the
+    matrices whose two smallest eigenvalues lie apart (EIGH_GAP of the
+    largest, by float64 ``eigh``), within EIGH_ATOL; its residual on all within
+    EIGH_RESID of the matrix's norm; device ms, the plain version's,
+    ``torch.linalg.eigh``'s and the bound; the synchronising calls of one
+    ``torch.linalg.eigh`` and of one launch (must be 0)."""
+    import torch
+
+    from eagle_tpu_torch.ops import eigh
+
+    saved = lc.snapshot()
+    errs = []
+    mats = eigh_inputs(model, frames)
+    for a in mats:
+        got = eigh.smallest_eigenvector_cuda(a).reshape(-1, 9)
+        plain = eigh.smallest_eigenvector_plain(a).reshape(-1, 9)
+        a64 = a.double().reshape(-1, 9, 9)
+        lam, _ = torch.linalg.eigh(a64)
+        apart = (lam[:, 1] - lam[:, 0]) > EIGH_GAP * lam[:, -1].abs()
+        err = torch.minimum((got - plain).abs().amax(-1), (got + plain).abs().amax(-1))
+        g64 = got.double()
+        resid = ((a64 @ g64[..., None])[..., 0] - lam[:, :1] * g64).norm(dim=-1) / a64.flatten(1).norm(dim=-1)
+        errs.append(float(err[apart].max()) if bool(apart.any()) else 0.0)
+        if errs[-1] > EIGH_ATOL or float(resid.max()) > EIGH_RESID:
+            fail(f"the eigen-solve kernel differs from torch.linalg.eigh on the slice's {tuple(a.shape)} matrices: "
+                 f"{errs[-1]:.3e} on {int(apart.sum())} separated ones, residual {float(resid.max()):.3e}")
+    big = mats[0]
+    syncs = {what: host_syncs(fn) for what, fn in (("torch.linalg.eigh", lambda: torch.linalg.eigh(big)),
+                                                    ("eigh9", lambda: eigh.smallest_eigenvector_cuda(big)))}
+    if syncs["eigh9"]:
+        fail(f"the eigen-solve kernel made {syncs['eigh9']} synchronising calls")
+    ms, how = kernel_ms(lambda: eigh.smallest_eigenvector_cuda(big), "eigh9", "eigh9", "eigh9")
+    plain = cuda_ms(lambda: eigh.smallest_eigenvector_plain(big))
+    library = cuda_ms(lambda: torch.linalg.eigh(big))
+    lc.restore(saved)  # comparison launches are not main-path launches
+    b = big.shape[0]
+    nbytes = b * (81 + 9) * 4
+    ops = b * EIGH_OPS
+    bound_b, bound_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_OPS_S * 1e3
+    print(f"graph: eigen-solve kernel ({b} x 9 x 9 and 9 x 9 of the slice's RANSAC) within {max(errs):.3e} of "
+          f"torch.linalg.eigh up to sign; {ms:.4f} ms a launch ({how}), plain {plain:.4f} ms, torch.linalg.eigh "
+          f"{library:.4f} ms; bound {max(bound_b, bound_o) * 1e3:.4f} us ({nbytes} B; {ops} float32 operations); "
+          f"synchronising calls a call: {syncs}")
+    return {
+        "name": "eigh9",
+        "route": "cuda",
+        "source": "eagle_tpu_torch/csrc/eigh9.cu",
+        "replaces": "eagle_tpu/ops/homography.py:79 (dlt_homography's jnp.linalg.eigh in the scan program)",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": max(bound_b, bound_o),
+        "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "library_ms": library,
+        "shape": [b, 9, 9],
+    }
+
+
+def phase_graph(frames, pts, slice_model, slice_traced) -> tuple[dict, dict]:
+    """The temporal scan as captured chunks: (a) the 48-frame slice, (b) the
+    oracle-keypoint clip, (c) the exact slice, each through the captured
+    chunks and the eager loop on the card, bit-equal, with the temporal
+    stage's ms and blocking calls a frame both ways; then the keys and
+    eigen-solve kernels against their plain versions.  Returns their
+    kernels-line entries."""
+    import torch
+
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    t0 = time.perf_counter()
+    graph_against_eager(slice_model, frames, "slice", num_keypoint_detection=3)
+    graph_profile(slice_traced)
+    kp_fn, det_fn, _ = oracle_models(frames[:REF_FRAMES], pts)
+    oracle = CoordinateModel(keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
+    graph_against_eager(oracle, frames[:REF_FRAMES], "oracle clip", num_keypoint_detection=6)
+    exact = CoordinateModel(config=exact_config(), seed=SEED, device="cuda")
+    exact.keypoint_model.load_state_dict(slice_model.keypoint_model.state_dict())
+    exact.detector_model.load_state_dict(slice_model.detector_model.state_dict())
+    graph_against_eager(exact, frames, "exact slice", num_keypoint_detection=3)
+    del exact
+    torch.cuda.empty_cache()
+    keys = keys_kernel()
+    eig = eigh_kernel(slice_model, frames)
+    print(f"graph: phase {time.perf_counter() - t0:.1f} s")
+    return keys, eig
 
 
 # ---------------------------------------------------------------------------
@@ -1031,14 +1427,12 @@ def phase_slice(frames):
 
 
 def zero_loop_counts() -> None:
-    """Zeroes the auction's and NMS's launch counts and the auction's
-    device-side round tallies."""
-    from eagle_tpu_torch.ops import assignment, nms
+    """Zeroes every kernel's launch count and the auction's rounds (the
+    plain version's and the kernel's device-side tallies)."""
+    from eagle_tpu_torch.ops import assignment
 
-    assignment.auction_launches = 0
-    assignment.auction_launches_by_path = {"registers": 0, "global": 0}
+    lc.reset()
     assignment.reset_rounds()
-    nms.launches = 0
 
 
 def loop_counts() -> dict:
@@ -1046,10 +1440,10 @@ def loop_counts() -> dict:
     its kernels ran (the device tally), NMS's launches."""
     import torch
 
-    from eagle_tpu_torch.ops import assignment, nms
+    from eagle_tpu_torch.ops import assignment
 
     torch.cuda.synchronize()
-    return {"auction": assignment.auction_launches, "rounds": assignment.device_rounds(), "nms": nms.launches}
+    return {"auction": lc.get("auction"), "rounds": assignment.device_rounds(), "nms": lc.get("nms")}
 
 
 def loop_line(c: dict) -> str:
@@ -1084,7 +1478,8 @@ def record_loop_inputs(model, frames) -> tuple[list, list]:
     tracker's solver calls and the detector's suppression calls recorded:
     ([(stage, cost, row_valid, col_valid, gate)] in call order, three a
     temporal step; [(shifted, valid, iou threshold)], one a detector
-    batch), copies on the card."""
+    batch), copies on the card.  The temporal stage runs its eager loop
+    here: a captured step's replay calls no Python to record."""
     from eagle_tpu_torch.ops import nms
     from eagle_tpu_torch.track import botsort
 
@@ -1100,14 +1495,16 @@ def record_loop_inputs(model, frames) -> tuple[list, list]:
         return real_suppress(shifted, valid, thr)
 
     botsort.masked_auction, nms.suppress = solver, suppress
+    model._temporal_path = "frames"
     try:
         model.get_coordinates(frames, FPS, num_keypoint_detection=3)
     finally:
         botsort.masked_auction, nms.suppress = real_solver, real_suppress
+        model._temporal_path = None
     return solves, batches
 
 
-def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20, per_call: int = 1) -> tuple[float, str]:
+def kernel_ms(call, count: str, kernel: str, what: str, reps: int = 20, per_call: int = 1) -> tuple[float, str]:
     """Device time of one launch from the profiler's trace over ``reps``
     calls (:func:`traced_flow`): the time the ``per_call`` device kernels a
     launch runs (every kernel whose name holds ``kernel``) cover, the union
@@ -1117,7 +1514,7 @@ def kernel_ms(mod, call, count: str, kernel: str, what: str, reps: int = 20, per
     operation."""
     from eagle_tpu_torch.utils.profiling import _union_ms
 
-    tr = traced_flow(mod, call, reps, kernel=kernel, count=count)
+    tr = traced_flow(call, reps, kernel=kernel, count=count)
     if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > per_call * reps:
         fail(f"{reps} {what} calls launched the kernel {tr['launched']} times and traced "
              f"{len(tr['ops']) - len(tr['flow'])} other device operations")
@@ -1136,10 +1533,10 @@ def auction_against_plain(benefit, row_ok, c: int, iterations: int, what: str) -
 
     from eagle_tpu_torch.ops import assignment as lap
 
-    before = lap.auction_launches
+    before = lc.get("auction")
     got_m, got_r = lap.auction_rounds(benefit, row_ok, c, iterations)
     torch.cuda.synchronize()
-    if lap.auction_launches != before + 1:
+    if lc.get("auction") != before + 1:
         fail(f"auction_rounds on CUDA tensors ({what}) did not launch the kernel once")
     record: list = []
     want_m, want_r = lap.auction_rounds_plain(benefit.cpu(), row_ok.cpu(), c, iterations, record=record)
@@ -1182,7 +1579,7 @@ def auction_kernel(solves: list) -> dict:
         feas = rows[:, None] & cols[None, :] & (cost <= gate)
         return lap.auction_benefit(cost, feas, gate, max_cardinality=False)
 
-    counts0 = lap.auction_launches, dict(lap.auction_launches_by_path)
+    saved = lc.snapshot()
     tracked = [(st, *inputs(cost, rows, cols, gate), cost.shape[1]) for st, cost, rows, cols, gate in solves]
     r, ctot = tracked[0][1].shape
     if lap.auction_path(r, ctot) != "registers":
@@ -1235,7 +1632,7 @@ def auction_kernel(solves: list) -> dict:
         ben, ok = inputs(cost, rows, cols, gate)
         if auction_against_plain(ben, ok, cost.shape[1], 512, f"the {n}-round case")[0] != n:
             fail(f"the {n}-round auction case ran another number of rounds")
-        by_rounds[n], _ = kernel_ms(lap, lambda: lap.auction_rounds(ben, ok, cost.shape[1]), "auction_launches",
+        by_rounds[n], _ = kernel_ms(lambda: lap.auction_rounds(ben, ok, cost.shape[1]), "auction",
                                     "auction", f"auction_rounds ({n} rounds)")
     round_ms = (by_rounds[11] - by_rounds[1]) / 10
     print(f"kernel auction at 64 x 192: device ms a launch of 0, 1, 4, 11 rounds "
@@ -1247,7 +1644,7 @@ def auction_kernel(solves: list) -> dict:
     # times: the three stages of the last recorded step, each its own matrix
     entry_stages = {}
     for st, ben, ok, c in tracked[-3:]:
-        ms, how = kernel_ms(lap, lambda: lap.auction_rounds(ben, ok, c), "auction_launches", "auction",
+        ms, how = kernel_ms(lambda: lap.auction_rounds(ben, ok, c), "auction", "auction",
                             f"auction_rounds (stage {st})")
         done, record = auction_against_plain(ben, ok, c, 512, f"timed stage {st}")
         plain = cuda_ms(lambda: lap.auction_rounds_plain(ben, ok, c), reps=5, warmup=1)
@@ -1260,7 +1657,7 @@ def auction_kernel(solves: list) -> dict:
               f"over it")
         entry_stages[str(st)] = {"ms": ms, "rounds": done, "bidding_rows": sum(record), "plain_ms": plain,
                                  "bound_ms": bound, "bound_by": by}
-    lap.auction_launches, lap.auction_launches_by_path = counts0  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     mean = {k: sum(v[k] for v in entry_stages.values()) / 3 for k in ("ms", "plain_ms", "bound_ms")}
     return {
         "name": "auction",
@@ -1311,14 +1708,14 @@ def nms_kernel(batches: list) -> dict:
     from eagle_tpu_torch.ops import nms
     from eagle_tpu_torch.utils.kernel_cases import ANCHORS, CHAIN, NMS_KINDS, nms_cases, nms_wide_case, suppress_inputs
 
-    launches0 = nms.launches
+    saved = lc.snapshot()
     shifted, valid, thr = batches[0]
 
     def against_plain(s, v, what):
-        before = nms.launches
+        before = lc.get("nms")
         got = nms.suppress(s, v, thr)
         torch.cuda.synchronize()
-        if nms.launches != before + 1:
+        if lc.get("nms") != before + 1:
             fail(f"suppress on CUDA tensors ({what}) did not launch the kernel once")
         want = nms.suppress_plain(s.cpu(), v.cpu(), thr)
         if not torch.equal(got.cpu(), want):
@@ -1327,10 +1724,10 @@ def nms_kernel(batches: list) -> dict:
         return want
 
     def against_plain_on_card(s, v, what):
-        before = nms.launches
+        before = lc.get("nms")
         got = nms.suppress(s, v, thr)
         want = nms.suppress_plain(s, v, thr)
-        if nms.launches != before + 1 or not torch.equal(got, want):
+        if lc.get("nms") != before + 1 or not torch.equal(got, want):
             fail(f"the NMS kernel's keep differs from the plain version's ({what})")
         return got
 
@@ -1353,7 +1750,7 @@ def nms_kernel(batches: list) -> dict:
           f"{sum(cases)} kernel_cases images (threshold pairs, a {CHAIN}-link chain, empty, overflow) == plain bit "
           f"for bit; batched_nms {syncs} host syncs")
 
-    ms, how = kernel_ms(nms, lambda: nms.suppress(shifted, valid, thr), "launches", "nms_suppress", "suppress",
+    ms, how = kernel_ms(lambda: nms.suppress(shifted, valid, thr), "nms", "nms_suppress", "suppress",
                         per_call=2)
     plain = cuda_ms(lambda: nms.suppress_plain(shifted, valid, thr), reps=5, warmup=1)
     t_bytes, t_ops, bound, by, pairs = nms_bound(valid, k)
@@ -1369,14 +1766,14 @@ def nms_kernel(batches: list) -> dict:
     for kw in (1025, 2048, 4096, ANCHORS):
         sw, vw = suppress_inputs(*nms_wide_case(kw, b=1, seed=kw), kw, device="cuda")
         got = against_plain_on_card(sw, vw, f"one image of {kw} candidates")
-        wms, whow = kernel_ms(nms, lambda: nms.suppress(sw, vw, thr), "launches", "nms_suppress",
+        wms, whow = kernel_ms(lambda: nms.suppress(sw, vw, thr), "nms", "nms_suppress",
                               f"suppress at k = {kw}", reps=5, per_call=2)
         wb, wo, wbound, wby, wpairs = nms_bound(vw, kw)
         wide[str(kw)] = {"valid": int(vw.sum()), "kept": int(got.sum()), "ms": wms, "bound_ms": wbound,
                          "bound_by": wby}
         print(f"kernel nms at 1 x {kw}: {int(vw.sum())} valid, {int(got.sum())} kept == plain; {wms:.4f} ms device "
               f"time a launch ({whow}); bound {wbound * 1e3:.4f} us by {wby} ({wpairs} pairs), {wms / wbound:.1f}x")
-    nms.launches = launches0  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     return {
         "name": "nms",
         "route": "cuda",
@@ -1433,15 +1830,15 @@ def nms_wide_slice(model, frames) -> None:
 
     model.config = cfg.replace(detector=dataclasses.replace(cfg.detector, nms_pre_topk=WIDE_PRE_TOPK))
     nms.suppress = record
-    launches0 = nms.launches
+    launches0 = lc.get("nms")
     try:
         got = model.get_coordinates(frames, FPS, num_keypoint_detection=3)
     finally:
         model.config, nms.suppress = cfg, real
     batches = -(-len(frames) // PIECE)
-    if widths != [WIDE_PRE_TOPK] * batches or nms.launches - launches0 != batches:
+    if widths != [WIDE_PRE_TOPK] * batches or lc.get("nms") - launches0 != batches:
         fail(f"get_coordinates at nms_pre_topk={WIDE_PRE_TOPK} suppressed at widths {widths} in "
-             f"{nms.launches - launches0} launches")
+             f"{lc.get('nms') - launches0} launches")
     if got != want:
         bad = [i for i in want if got.get(i) != want[i]]
         fail(f"get_coordinates at nms_pre_topk={WIDE_PRE_TOPK} differs from the run at 512 in frames {bad[:10]}")
@@ -1508,7 +1905,7 @@ def tracker_kernel(frames) -> dict:
     Returns the lk_flow entry's K = 240 fields."""
     from eagle_tpu_torch.ops import optical_flow as of
 
-    launches0, by_k0 = of.launches, dict(of.launches_by_k)
+    saved = lc.snapshot()
     for canvas in (False, True):
         prev, curr, p, valid = grid_corner_input(frames, canvas)
         if any(of._pitched(f)[0].data_ptr() != f.data_ptr() for f in (prev, curr)):
@@ -1523,7 +1920,7 @@ def tracker_kernel(frames) -> dict:
     # prev, curr, p, valid are the canvas pair's: the full-width slice's frames
     t = flow_times(of, prev, curr, p, valid)
     gmc_ms, gmc_syncs = features_gmc_timing(prev, curr)
-    of.launches, of.launches_by_k = launches0, by_k0  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     step, ms = t["step"], t["step"]["flow_kernel_ms"]
     seen = check_flow_step(step, "at K = 240")
     print(f"tracker kernel lk_flow: K=240 {ms:.4f} ms device time a launch ({seen}), call "
@@ -1568,7 +1965,6 @@ def tracker_reference(frames, pts) -> None:
     plain CPU path; the embeddings' largest difference."""
     import torch
 
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.ops.optical_flow import upload_frames
 
     clip = frames[:REF_FRAMES]
@@ -1577,11 +1973,11 @@ def tracker_reference(frames, pts) -> None:
     for dev in ("cuda", "cpu"):
         kp_fn, det_fn, _ = oracle_models(clip, pts)
         models[dev] = tracker_model(cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
-        of.launches_by_k = {}
+        lc.reset("lk_flow")
         res[dev] = models[dev].get_coordinates(clip, FPS, num_keypoint_detection=6)
         if dev == "cuda":
             torch.cuda.synchronize()
-            n240 = of.launches_by_k.get(240, 0)
+            n240 = lc.get("lk_flow/k=240")
     bad = coords_mismatch(res["cuda"], res["cpu"])
     if bad:
         fail(f"the tracker (features GMC, OSNet f32) on the card differs from its plain CPU path: {bad}")
@@ -1607,7 +2003,6 @@ def tracker_slice(frames, slice_model):
     import torch
 
     from eagle_tpu_torch.models.osnet import embed_boxes
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
 
     cfg = tracker_config(use_bf16=True, reid_slots=64)
@@ -1618,14 +2013,13 @@ def tracker_slice(frames, slice_model):
     torch.cuda.synchronize()
 
     timer = StageTimer(model.device, sync=True)
-    of.launches, of.launches_by_k = 0, {}
     zero_loop_counts()
     stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n57, n240 = of.launches_by_k.get(57, 0), of.launches_by_k.get(240, 0)
+    n57, n240 = lc.get("lk_flow/k=57"), lc.get("lk_flow/k=240")
     loops, stepped = loop_counts(), model.frames_stepped - stepped0
     if sorted(res) != list(range(len(frames))) or any(
         set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
@@ -1749,10 +2143,10 @@ def lap_against_plain(costs) -> tuple[list[int], float]:
 
     b, n, _ = costs.shape
     path = lap.kernel_path(n)
-    before, on_path = lap.launches, lap.launches_by_path[path]
+    before, on_path = lc.get("lap_jv"), lc.get(f"lap_jv/{path}")
     got = lap.solve_lap(costs if b > 1 else costs[0]).reshape(b, n)
     torch.cuda.synchronize()
-    if lap.launches != before + 1 or lap.launches_by_path[path] != on_path + 1:
+    if lc.get("lap_jv") != before + 1 or lc.get(f"lap_jv/{path}") != on_path + 1:
         fail(f"solve_lap on a CUDA ({b}, {n}, {n}) tensor did not launch the kernel once on its {path} path")
     got = got.cpu().numpy()
     steps, plain_s = [], 0.0
@@ -1784,7 +2178,7 @@ def lap_kernel_ms(costs, reps: int = 20) -> tuple[float, str]:
     def call():
         return lap.solve_lap(costs)
 
-    tr = traced_flow(lap, call, reps, kernel="lap_jv")
+    tr = traced_flow(call, reps, kernel="lap_jv", count="lap_jv")
     if tr["launched"] != reps or len(tr["ops"]) != len(tr["flow"]) or len(tr["flow"]) > reps:
         fail(f"{reps} solve_lap calls launched the kernel {tr['launched']} times and traced "
              f"{len(tr['ops']) - len(tr['flow'])} other device operations")
@@ -1832,7 +2226,7 @@ def exact_kernel(model, frames, build_log: str) -> dict:
 
     from eagle_tpu_torch.ops import assignment as lap
 
-    counts0 = lap.launches, dict(lap.launches_by_path)
+    saved = lc.snapshot()
     inputs = lap_inputs(model, frames)
     if lap.kernel_path(LAP_N) != "shared" or lap.kernel_path(LAP_N_GLOBAL) != "global":
         fail(f"lap_jv paths: n = {LAP_N} takes {lap.kernel_path(LAP_N)}, n = {LAP_N_GLOBAL} "
@@ -1875,7 +2269,7 @@ def exact_kernel(model, frames, build_log: str) -> dict:
             singles = torch.stack([lap.solve_lap(costs[k]) for k in range(b)])
             if not torch.equal(lap.solve_lap(costs), singles):
                 fail(f"the batched lap_jv launch over {b} matrices differs from {b} single launches")
-    lap.launches, lap.launches_by_path = counts0[0], counts0[1]  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     main = entry["tracking"]
     return {
         "name": "lap_jv",
@@ -1906,7 +2300,6 @@ def exact_reference(frames, pts) -> None:
     short (n = 56)."""
     import torch
 
-    from eagle_tpu_torch.ops import assignment as lap
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 
     clip = frames[:REF_FRAMES]
@@ -1917,11 +2310,11 @@ def exact_reference(frames, pts) -> None:
         kp_fn, det_fn, _ = oracle_models(clip, pts)
         model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=lambda b, f=det_fn: tuple(
             x[:, :d_slots] for x in f(b)), device=dev)
-        launches0 = lap.launches
+        launches0 = lc.get("lap_jv")
         res[dev] = model.get_coordinates(clip, FPS, num_keypoint_detection=6)
         if dev == "cuda":
             torch.cuda.synchronize()
-            launched, stepped = lap.launches - launches0, model.frames_stepped
+            launched, stepped = lc.get("lap_jv") - launches0, model.frames_stepped
     bad = coords_mismatch(res["cuda"], res["cpu"])
     if bad:
         fail(f"the exact solver's oracle clip on the card differs from its plain CPU path: {bad}")
@@ -1943,10 +2336,7 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     of the timed run."""
     import torch
 
-    from eagle_tpu_torch.ops import assignment as lap
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
-    from eagle_tpu_torch.utils.profiling import profile_stages
 
     model = CoordinateModel(config=exact_config(), seed=SEED, device="cuda")
     model.keypoint_model.load_state_dict(slice_model.keypoint_model.state_dict())
@@ -1955,15 +2345,13 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     torch.cuda.synchronize()
 
     timer = StageTimer(model.device, sync=True)
-    lap.launches, lap.launches_by_path = 0, {"shared": 0, "global": 0}
-    of.launches = 0
     zero_loop_counts()
     stepped0 = model.frames_stepped
     t0 = time.perf_counter()
     res = model.get_coordinates(frames, FPS, num_keypoint_detection=3, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, shared, loops, stepped = lap.launches, lap.launches_by_path["shared"], loop_counts(), \
+    launches, shared, loops, stepped = lc.get("lap_jv"), lc.get("lap_jv/shared"), loop_counts(), \
         model.frames_stepped - stepped0
     if sorted(res) != list(range(len(frames))) or any(
         set(fr) != {"Coordinates", "Time", "Keypoints", "Boundaries"} for fr in res.values()
@@ -1975,15 +2363,16 @@ def exact_slice(frames, slice_model, slice_res: dict) -> int:
     stages = {k: round(v * 1e3, 3) for k, v in timer.seconds.items()}
     print(f"exact slice: {len(frames)} frames (DEFAULT_CONFIG, assignment='exact', n = {LAP_N}) in {wall:.3f} s = "
           f"{len(frames) / wall:.2f} fps; stage ms {json.dumps(stages)}; lap_jv launches {launches} for {stepped} "
-          f"temporal steps, {loop_line(loops)}; lk_flow launches {of.launches}")
+          f"temporal steps, {loop_line(loops)}; lk_flow launches {lc.get('lk_flow')}")
 
     profiled = {}
     for name, m in (("exact", model), ("auction", slice_model)):
-        zero_loop_counts()
-        st, by_kernel, _ = profile_stages(m, frames, FPS, num_keypoint_detection=3)
+        counted, loops, (st, by_kernel, _), _, _ = traced_run(m, frames, f"{name} slice", num_keypoint_detection=3)
+        if name == "exact" and counted["lap_jv"] != launches:
+            fail(f"the exact slice's traced run counted {counted['lap_jv']} lap_jv launches, the timed run {launches}")
         kernels = {kn: [v for k, v in by_kernel.items() if kn in k] for kn in ("lap_jv", "auction", "nms_suppress")}
-        profiled[name] = (st, loop_counts(), {kn: (sum(c for c, _ in v), sum(ms for _, ms in v))
-                                              for kn, v in kernels.items()})
+        profiled[name] = (st, loops, {kn: (sum(c for c, _ in v), sum(ms for _, ms in v))
+                                      for kn, v in kernels.items()})
     for name, (st, loops, kernels) in profiled.items():
         tmp, det = st["temporal"], st["detector"]
         print(f"exact slice, profiled ({name} solver, {len(frames)} frames): temporal {tmp['wall_ms']:.3f} ms, "
@@ -2129,7 +2518,6 @@ def phase_process(frames, pts):
 
     from eagle_tpu_torch.io.output import dumps_records
     from eagle_tpu_torch.main import run
-    from eagle_tpu_torch.ops import optical_flow
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer
     from eagle_tpu_torch.pipeline.processor import Processor
 
@@ -2141,12 +2529,12 @@ def phase_process(frames, pts):
     torch.cuda.synchronize()
     timer = StageTimer(model.device, sync=True)
     with tempfile.TemporaryDirectory() as out_dir:
-        optical_flow.launches = 0
+        lc.reset()
         t0 = time.perf_counter()
         out = run(match, FPS, out_dir, model, annotated=False, timer=timer)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = optical_flow.launches
+        launches = lc.get("lk_flow")
         files = {}
         for name in ("raw_coordinates.json", "raw_data.json", "metadata.json", "processed_data.json"):
             with open(os.path.join(out_dir, name)) as f:
@@ -2288,7 +2676,6 @@ def cli_oracle(frames, pts, d: str):
 
     import eagle_tpu_torch.io.video as video
     from eagle_tpu_torch import main as cli
-    from eagle_tpu_torch.ops import optical_flow
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 
     match, people, _ = make_match(frames)
@@ -2312,10 +2699,9 @@ def cli_oracle(frames, pts, d: str):
             wall = time.perf_counter() - t0
         return out, wall, os.path.join(d, sub, "output", "match")
 
-    optical_flow.launches = 0
     zero_loop_counts()
     whole, wall, whole_dir = main_in("whole")
-    launches, loops = optical_flow.launches, loop_counts()
+    launches, loops = lc.get("lk_flow"), loop_counts()
     if sorted(os.listdir(whole_dir)) != sorted((*JSON_FILES, "annotated.mp4")):
         fail(f"the CLI wrote {sorted(os.listdir(whole_dir))}")
     if launches < len(decoded) - 1 or loops["auction"] < len(decoded) - 1:
@@ -2439,11 +2825,10 @@ def cli_full_width(model, mp4: str, decoded, d: str) -> None:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = DEFAULT_TF32
     try:
         ref = CoordinateModel(keypoint_checkpoint=kp_path, detector_checkpoint=det_path, device="cuda")
-        optical_flow.launches = 0
         zero_loop_counts()
         whole = cli.run(decoded, FPS, os.path.join(d, "ref_whole"), ref, num_homography=CLI_HOMOGRAPHIES,
                         annotated=False)
-        launches, loops = optical_flow.launches, loop_counts()
+        launches, loops = lc.get("lk_flow"), loop_counts()
         cli.run_streamed(iter_video(mp4, FPS, CLI_SEGMENT), FPS, os.path.join(d, "ref_streamed"), ref,
                          lambda k: VideoFrameSource(mp4, FPS, length=k), num_homography=CLI_HOMOGRAPHIES,
                          annotated=False)
@@ -2519,7 +2904,6 @@ def stream_oracle(frames, pts) -> None:
     blocks of 16 + 8): on the card it equals the card's one-shot exactly
     and the port's CPU stream by coords_mismatch, and stages no frame."""
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 
     clip = frames[:STREAM_REF_FRAMES]
@@ -2531,9 +2915,9 @@ def stream_oracle(frames, pts) -> None:
         return CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device=dev)
 
     one = model("cuda").get_coordinates(clip, FPS, num_keypoint_detection=6)
-    of.staged, launches0 = 0, of.launches
+    lc.reset()
     card, blocks = stream_run(model("cuda"), segments, num_keypoint_detection=6)
-    launches, staged = of.launches - launches0, of.staged
+    launches, staged = lc.get("lk_flow"), lc.get("lk_flow/staged")
     cpu, _ = stream_run(model("cpu"), segments, num_keypoint_detection=6)
     if blocks != [16, 8]:
         fail(f"the oracle stream ran blocks of {blocks}, expected [16, 8]")
@@ -2559,7 +2943,6 @@ def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
 
     import torch
 
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import StageTimer
 
     streamer = copy.copy(model)  # the same modules, blocks cut at 16-frame multiples
@@ -2569,14 +2952,13 @@ def stream_slice(model, frames, one_shot: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     timer = StageTimer(streamer.device, sync=True)
     streamer.ondemand_rounds = 0
-    of.launches, of.staged = 0, 0
     zero_loop_counts()
     t0 = time.perf_counter()
     res, blocks = stream_run(streamer, [frames[:10], frames[10:33], frames[33:]], num_keypoint_detection=3,
                              timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, staged, rounds, loops = of.launches, of.staged, streamer.ondemand_rounds, loop_counts()
+    launches, staged, rounds, loops = lc.get("lk_flow"), lc.get("lk_flow/staged"), streamer.ondemand_rounds, loop_counts()
     if blocks != [32, 16]:
         fail(f"the slice streamed in blocks of {blocks}, expected [32, 16]")
     if res != one_shot:
@@ -2746,7 +3128,7 @@ def clip_pairs(frames, pts, k: int):
     return prev, curr, p, valid
 
 
-def flow_kernel_ms(of, call, reps: int = 20) -> float:
+def flow_kernel_ms(call, reps: int = 20) -> float:
     """Device time of the flow kernels one ``call()`` launches, from the
     profiler's trace over ``reps`` calls (:func:`traced_flow`): the mean
     traced launch times the launches a call.  Fails if a call ran any other
@@ -2756,7 +3138,7 @@ def flow_kernel_ms(of, call, reps: int = 20) -> float:
 
     call()
     torch.cuda.synchronize()
-    tr = traced_flow(of, call, reps)
+    tr = traced_flow(call, reps)
     flow = tr["flow"]
     if len(tr["ops"]) != len(flow) or len(flow) > tr["launched"]:
         fail(f"flow calls ran {len(tr['ops']) - len(flow)} device operations other than the flow kernel")
@@ -2778,14 +3160,14 @@ def multiclip_kernel(frames, pts) -> dict:
 
     from eagle_tpu_torch.ops import optical_flow as of
 
-    counts0 = of.launches, dict(of.launches_by_k), dict(of.launches_by_ck)
+    saved = lc.snapshot()
     out = {}
     for k in (57, 240):
         prev, curr, p, valid = clip_pairs(frames, pts, k)
-        before = of.launches_by_ck.get((MC_PAIRS, k), 0)
+        before = lc.get(f"lk_flow/C={MC_PAIRS},K={k}")
         g, s = of.lk_flow_clips(prev, curr, p, valid)
         torch.cuda.synchronize()
-        if of.launches_by_ck.get((MC_PAIRS, k), 0) != before + 1:
+        if lc.get(f"lk_flow/C={MC_PAIRS},K={k}") != before + 1:
             fail(f"lk_flow_clips on CUDA tensors did not launch the kernel once at C = {MC_PAIRS}, K = {k}")
         err, nbytes, ops = 0.0, 0, 0
         h, w = FRAME_HW
@@ -2806,8 +3188,8 @@ def multiclip_kernel(frames, pts) -> dict:
             nbytes, ops = nbytes + b, ops + o
         if not err <= FLOW_ATOL:
             fail(f"the batched launch's positions differ from the plain version by {err} > {FLOW_ATOL} at K = {k}")
-        ms = flow_kernel_ms(of, lambda: of.lk_flow_clips(prev, curr, p, valid))
-        singles = flow_kernel_ms(of, lambda: [of.lk_flow(prev[c], curr[c], p[c], valid[c]) for c in range(MC_PAIRS)])
+        ms = flow_kernel_ms(lambda: of.lk_flow_clips(prev, curr, p, valid))
+        singles = flow_kernel_ms(lambda: [of.lk_flow(prev[c], curr[c], p[c], valid[c]) for c in range(MC_PAIRS)])
         plain = cuda_ms(lambda: [of.lk_flow_plain(prev[c], curr[c], p[c], valid[c]) for c in range(MC_PAIRS)], reps=3)
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_INSTR_S * 1e3
         bound = max(t_bytes, t_ops)
@@ -2820,7 +3202,7 @@ def multiclip_kernel(frames, pts) -> dict:
         suffix = "" if k == 57 else "_k240"
         out.update({f"max_abs_err{suffix}": err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain,
                     f"bound_ms{suffix}": bound, f"bound_by{suffix}": by, f"singles_ms{suffix}": singles})
-    of.launches, of.launches_by_k, of.launches_by_ck = counts0  # comparison launches are not main-path launches
+    lc.restore(saved)  # comparison launches are not main-path launches
     return out
 
 
@@ -2832,7 +3214,6 @@ def multiclip_flattened(model, frames96) -> None:
     sequential runs."""
     import torch
 
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
 
     singles: dict = {}  # (first frame, length) -> (the clip's own result, its wall seconds)
@@ -2848,13 +3229,12 @@ def multiclip_flattened(model, frames96) -> None:
     for split in MC_SPLITS:
         spans = [(0, split[0]), (split[0], split[1])]
         torch.cuda.synchronize()
-        of.launches, of.launches_by_ck = 0, {}
         zero_loop_counts()
         t0 = time.perf_counter()
         res = MultiClipRunner(model).run([frames96[a : a + n] for a, n in spans], FPS, num_keypoint_detection=3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, loops = of.launches, loop_counts()
+        launches, loops = lc.get("lk_flow"), loop_counts()
         seq = 0.0
         for ci, (a, n) in enumerate(spans):
             want, secs = single(a, n)
@@ -2886,7 +3266,6 @@ def multiclip_batched(frames96, pts96) -> dict:
     import torch
 
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
     from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
 
@@ -2904,13 +3283,13 @@ def multiclip_batched(frames96, pts96) -> dict:
 
         card_model = model("cuda")
         torch.cuda.synchronize()
-        of.launches, of.launches_by_ck = 0, {}
         zero_loop_counts()
         t0 = time.perf_counter()
         card = MultiClipRunner(card_model).run(clips, FPS, num_keypoint_detection=6)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        by_ck, rounds, loops = dict(of.launches_by_ck), card_model.ondemand_rounds, loop_counts()
+        by_ck = {tuple(int(x[2:]) for x in d.split(",")): v for d, v in lc.details("lk_flow").items() if d.startswith("C=")}
+        rounds, loops = card_model.ondemand_rounds, loop_counts()
         if loops["auction"] < L or loops["nms"]:
             fail(f"clip-batched run ({gmc} GMC, oracle detections): {loop_line(loops)}; expected auction launches "
                  f"every step and no nms launch")
@@ -3003,7 +3382,6 @@ def multidevice_nccl(model, frames96, frames, pts, work: str) -> dict:
     import torch
     import torch.distributed as dist
 
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.parallel.mesh import gather_batch, make_mesh
     from eagle_tpu_torch.parallel.timeshard import halo_exchange_prev, timesharded_keypoint_scan
     from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
@@ -3017,13 +3395,12 @@ def multidevice_nccl(model, frames96, frames, pts, work: str) -> dict:
         if (mesh.size, mesh.backend, mesh.device.type) != (1, "nccl", "cuda"):
             fail(f"make_mesh under a one-rank NCCL group gave {mesh}")
         torch.cuda.synchronize()
-        of.launches = 0
         zero_loop_counts()
         t0 = time.perf_counter()
         got = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, loops = of.launches, loop_counts()
+        launches, loops = lc.get("lk_flow"), loop_counts()
         if not (loops["auction"] and loops["nms"]):
             fail(f"the runner over a one-rank NCCL mesh: {loop_line(loops)}")
         for ci in range(len(clips)):
@@ -3064,7 +3441,6 @@ def md_rank(rank: int, size: int, work: str) -> None:
     import torch.distributed as dist
 
     from eagle_tpu_torch import DEFAULT_CONFIG
-    from eagle_tpu_torch.ops import optical_flow as of
     from eagle_tpu_torch.parallel.mesh import gather_batch, make_mesh, shard_batch
     from eagle_tpu_torch.parallel.timeshard import halo_exchange_prev, timesharded_keypoint_scan
     from eagle_tpu_torch.pipeline import temporal
@@ -3090,20 +3466,20 @@ def md_rank(rank: int, size: int, work: str) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dist.barrier()
-        of.launches = 0
+        lc.reset()
         t0 = time.perf_counter()
         res = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = of.launches
+        launches = lc.get("lk_flow")
         frames, pts = make_frames(N_FRAMES)
         xs = md_scan_inputs(frames, pts, mesh.device)
         halo = gather_batch(halo_exchange_prev(shard_batch(xs.frame_bgr, mesh), mesh), mesh)
         local = temporal.FrameInputs(*(None if v is None else shard_batch(v, mesh) for v in xs))
         local = local._replace(prev_frame_bgr=halo_exchange_prev(local.frame_bgr, mesh))
-        of.launches = 0
+        lc.reset()
         ts = [gather_batch(a, mesh).cpu() for a in timesharded_keypoint_scan(mesh, model.config, SEED, local)]
-        torch.save({"res": res, "wall": wall, "launches": launches, "scan_launches": of.launches,
+        torch.save({"res": res, "wall": wall, "launches": launches, "scan_launches": lc.get("lk_flow"),
                     "halo": bool(torch.equal(halo[1:], xs.frame_bgr[:-1]) and torch.equal(halo[0], xs.frame_bgr[0])),
                     "ts": ts, "peak": torch.cuda.max_memory_allocated(), "device": str(mesh.device)},
                    f"{work}/rank{rank}.pt")
@@ -3275,7 +3651,6 @@ def eval_video(scene, truth) -> None:
 
     from eagle_tpu_torch import evaluate
     from eagle_tpu_torch.io.video import read_video_array, write_video
-    from eagle_tpu_torch.ops import nms
 
     gt_kp, gt_valid, gt_boxes, _ = truth
     labels = {
@@ -3291,11 +3666,11 @@ def eval_video(scene, truth) -> None:
         with open(labels_path, "w") as f:
             json.dump(labels, f)
         decoded, _ = read_video_array(video, fps=25)
-        nms.launches = 0
+        lc.reset()
         with contextlib.redirect_stdout(io.StringIO()):
             res = evaluate.main(["--video", video, "--labels", labels_path, "--frames", str(len(scene.frames)),
                                  "--out", out])
-        launches = nms.launches
+        launches = lc.get("nms")
     if decoded.shape != scene.frames.shape:
         fail(f"the mp4 decoded to {decoded.shape}, drawn {scene.frames.shape}")
     diff = float(np.abs(decoded.astype(np.int16) - scene.frames).mean())
@@ -3327,7 +3702,6 @@ def phase_eval(model) -> None:
     import tempfile
 
     from eagle_tpu_torch import evaluate, validate_acceptance
-    from eagle_tpu_torch.ops import nms
     from eagle_tpu_torch.utils.synthetic import make_scene
 
     t0 = time.perf_counter()
@@ -3341,10 +3715,10 @@ def phase_eval(model) -> None:
     ms = []
     for _ in range(2):
         seen.clear()
-        nms.launches = 0
+        lc.reset()
         res = evaluate.run(recorder, scene.frames, *truth)
-        if nms.launches != 1:
-            fail(f"evaluate.run made {nms.launches} NMS launches for its one detector call")
+        if lc.get("nms") != 1:
+            fail(f"evaluate.run made {lc.get('nms')} NMS launches for its one detector call")
         for name in ("YOLO", "HRNet"):
             if sorted(res[name]["metrics"]) != sorted(schema["metrics"]) or sorted(
                 res[name]["classification"]
@@ -3424,8 +3798,9 @@ def phase_bench() -> None:
     """The bench, ``python -m eagle_tpu_torch.bench --reps BENCH_REPS``, as
     a child process from this checkout: exit 0, a JSON headline as its last
     stdout line with every key of ``bench.KEYS``, ``status`` "ok", the
-    card's name in ``device``, and on every path the flow, auction and NMS
-    kernels launched and the JV kernel not.  Prints the headline."""
+    card's name in ``device``, and on every path the flow, auction, NMS,
+    keys and eigen-solve kernels launched and the JV kernel not.  Prints
+    the headline."""
     import torch
 
     from eagle_tpu_torch import bench
@@ -3453,6 +3828,10 @@ def phase_bench() -> None:
             fail(f"the bench's {path} path launched {counts}")
     if sorted(head["launches"]) != sorted(bench.PATHS):
         fail(f"the bench counted launches on {sorted(head['launches'])}, not {sorted(bench.PATHS)}")
+    if head["traced_kernels"] is not None:
+        traced = {k: head["traced_kernels"][k] for k in bench.TRACED}
+        print(f"bench: its traced run: device kernels in the trace {json.dumps(traced)}, launches counted "
+              f"{json.dumps(head['traced_run_launches'])} (information: the profiler may miss a launch)")
     print(f"bench: python -m eagle_tpu_torch.bench --reps {BENCH_REPS}: exit 0 in {wall:.1f} s of wall; its headline:")
     print(f"bench: {lines[-1]}")
 
@@ -3512,9 +3891,11 @@ def main() -> int:
     frames, pts = make_frames(N_FRAMES)
     flow = phase_kernel(frames, pts)
     phase_reference(frames, pts)
-    flow["launches"], model, slice_res, slice_loops = phase_slice(frames)
+    flow["launches"], model, slice_res, slice_loops, slice_traced = phase_slice(frames)
     auction_entry, nms_entry = phase_loops(model, frames)
     auction_entry["launches"], nms_entry["launches"] = slice_loops["auction"], slice_loops["nms"]
+    keys_entry, eigh_entry = phase_graph(frames, pts, model, slice_traced)
+    keys_entry["launches"], eigh_entry["launches"] = slice_loops["keys"], slice_loops["eigh9"]
     auction_entry["rounds"] = slice_loops["rounds"]
     tracker_fields, tracker = phase_tracker(frames, pts, model)
     flow.update(tracker_fields)
@@ -3532,7 +3913,7 @@ def main() -> int:
         phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(decoder_probe())
-    print(json.dumps({"kernels": [flow, clips_entry, lap_entry, auction_entry, nms_entry]}))
+    print(json.dumps({"kernels": [flow, clips_entry, lap_entry, auction_entry, nms_entry, keys_entry, eigh_entry]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -52,7 +52,7 @@ import traceback
 import numpy as np
 import torch
 
-from eagle_tpu_torch.ops import assignment, nms, optical_flow
+from eagle_tpu_torch.ops import launch_counts as counts
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel, StageTimer, resolve_device
 from eagle_tpu_torch.pipeline.multiclip import MultiClipRunner
 from eagle_tpu_torch.pipeline.processor import Processor
@@ -80,11 +80,16 @@ KEYS = (
     "metric", "value", "unit", "status", "frames", "device", "reps", *METRICS, *(f"{m}_spread" for m in METRICS),
     "players_per_frame", "players_pitch_error_m_median", "prescale_ms_per_frame", "dispatch_ms", "rtt_ms",
     "peak_device_memory_GiB", "launches", "temporal_ms_per_frame", "temporal_blocking_calls_per_frame",
-    "temporal_device_idle_share", "detector_device_idle_share", "traced_kernels",
+    "temporal_waiting_calls_per_frame",
+    "temporal_device_idle_share", "detector_device_idle_share", "traced_kernels", "traced_run_launches",
 )
 #: the kernels the bench's path launches, and the exact solver's, which it
 #: must not (the default tracker runs the auction)
-LAUNCHED, NOT_LAUNCHED = ("lk_flow", "auction", "nms"), ("lap_jv",)
+LAUNCHED, NOT_LAUNCHED = ("lk_flow", "auction", "nms", "ransac_keys", "eigh9"), ("lap_jv",)
+#: the hand-written kernels' device kernels in a trace, by name pattern: one
+#: a launch (an NMS launch runs its overlap kernel, then the fixed point)
+TRACED = {"lk_flow": r"lk_flow_fused", "auction": r"auction_(onchip|global)", "nms": r"nms_suppress_fixed_point",
+          "ransac_keys": r"ransac_keys", "eigh9": r"eigh9_smallest", "lap_jv": r"\blap_jv"}
 #: device kernels of a convolution (cuDNN's implicit-GEMM, Winograd and
 #: direct kernels, CUTLASS's fprop), by name
 CONV_KERNEL = re.compile(r"conv|fprop|winograd|implicit", re.IGNORECASE)
@@ -166,13 +171,9 @@ class OracleInjection:
 
 
 def launch_counts() -> dict:
-    """The kernels' launch counters (each wrapper's count of its launches)."""
-    return {
-        "lk_flow": optical_flow.launches,
-        "auction": assignment.auction_launches,
-        "nms": nms.launches,
-        "lap_jv": assignment.launches,
-    }
+    """The kernels' launch counts (each wrapper's count of its launches,
+    :mod:`eagle_tpu_torch.ops.launch_counts`)."""
+    return {k: counts.get(k) for k in LAUNCHED + NOT_LAUNCHED}
 
 
 def device_info(device: torch.device):
@@ -374,7 +375,9 @@ def run(model: CoordinateModel, scene, *, reps: int = 5, budget_s: float = 900.0
     # the untimed window: the temporal step's ms a frame with every stage
     # ending in a synchronize, then (on the card) one traced run
     head.update({"temporal_ms_per_frame": None, "temporal_blocking_calls_per_frame": None,
-                 "temporal_device_idle_share": None, "detector_device_idle_share": None, "traced_kernels": None})
+                 "temporal_waiting_calls_per_frame": None,
+                 "temporal_device_idle_share": None, "detector_device_idle_share": None, "traced_kernels": None,
+                 "traced_run_launches": None})
     if remaining() > 2 * n / min(samples[METRICS[0]]) + 30:
         inj.reset()
         timer = StageTimer(dev, sync=True)
@@ -385,7 +388,10 @@ def run(model: CoordinateModel, scene, *, reps: int = 5, budget_s: float = 900.0
         diag(f"budget: {remaining():.0f} s left; no synchronised run")
     if cuda and remaining() > 4 * n / min(samples[METRICS[0]]) + 30:
         inj.reset()
+        sync()
+        c0 = launch_counts()
         prof = profile_stages(model, frames, fps, **CADENCE)
+        launched = {k: v - c0[k] for k, v in launch_counts().items()}
         tmp, det = prof.stages["temporal"], prof.stages["detector"]
         every = {k: c for k, (c, _) in prof.kernels.items()}
 
@@ -395,15 +401,15 @@ def run(model: CoordinateModel, scene, *, reps: int = 5, budget_s: float = 900.0
 
         head.update({
             "temporal_blocking_calls_per_frame": tmp["blocking_calls"] / n,
+            "temporal_waiting_calls_per_frame": tmp["waiting_calls"] / n,
             "temporal_device_idle_share": tmp["device_idle_share"],
             "detector_device_idle_share": det["device_idle_share"],
             "traced_kernels": {
                 "detector_convolutions": count(CONV_KERNEL, prof.stage_kernels["detector"]),
                 "keypoint_convolutions": count(CONV_KERNEL, prof.stage_kernels["keypoints"]),
-                "lk_flow": count("lk_flow"),
-                "auction": count("auction"),
-                "nms": count("nms"),
+                **{k: count(pattern) for k, pattern in TRACED.items()},
             },
+            "traced_run_launches": launched,
         })
         diag({"traced_stages": prof.stages})
         top = sorted(prof.kernels.items(), key=lambda kv: -kv[1][1])[:12]

@@ -76,6 +76,17 @@ def build_library(lib: str, src: str, command: Callable[[str], list[str]]) -> st
         return r.stdout + r.stderr
 
 
+def prescale_available() -> bool:
+    """Whether the native prescale library builds and loads here (the JAX
+    package's ``prescale_available``); the prescale paths themselves raise
+    when it does not."""
+    try:
+        _load_prescale()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _load_prescale():
     global _prescale_lib
     with _lock:

@@ -33,19 +33,18 @@ import torch
 import torch.nn.functional as F
 
 from eagle_tpu_torch.native import build_library
+from eagle_tpu_torch.ops import launch_counts
 from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
 
 #: bidding rounds run by :func:`auction_rounds_plain` (CPU tensors); the
 #: kernel's rounds go to a device-side tally (:func:`device_rounds`)
 rounds = 0
-#: launches of the auction kernel (one per :func:`auction_rounds` call on
-#: CUDA tensors)
-auction_launches = 0
-#: the same launches by path: the rows kept in registers (R <= 128, C + R <=
-#: 256), or the benefit read from global memory (a larger matrix)
-auction_launches_by_path = {"registers": 0, "global": 0}
-#: the kernel's rounds, one int64 tally a device, added on the card
-_round_tally: dict = {}
+#: the auction kernel's launches (one per :func:`auction_rounds` call on
+#: CUDA tensors) count in :mod:`launch_counts` as ``"auction"``, with their
+#: path as a detail: ``"auction/registers"`` (the rows kept in registers,
+#: R <= 128, C + R <= 256) or ``"auction/global"`` (the benefit read from
+#: global memory, a larger matrix); the kernel adds its rounds on the card
+#: into the device counter ``"auction_rounds"``
 
 _AUCTION_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "auction.cu")
 _AUCTION_LIB = os.path.join(BUILD_DIR, "libauction.so")
@@ -102,15 +101,14 @@ def device_rounds() -> int:
     """The auction kernel's bidding rounds since the last
     :func:`reset_rounds`, over every device (reads the tallies: a host
     sync)."""
-    return sum(int(t.item()) for t in _round_tally.values())
+    return launch_counts.get("auction_rounds")
 
 
 def reset_rounds() -> None:
     """Zero :data:`rounds` and the kernel's device-side tallies."""
     global rounds
     rounds = 0
-    for t in _round_tally.values():
-        t.zero_()
+    launch_counts.reset("auction_rounds")
 
 
 def auction_rounds_plain(
@@ -206,7 +204,6 @@ def auction_rounds_cuda(
     the device's tally.  Raises ``ValueError`` on any other input and
     ``RuntimeError`` when the kernel does not build or launch (the vectors
     of more than ~14,000 columns do not fit in a block)."""
-    global auction_launches
     _check_auction(benefit, row_ok, c, iterations)
     if benefit.device.type != "cuda":
         raise ValueError(f"the auction kernel needs CUDA tensors, got {benefit.device}")
@@ -219,9 +216,7 @@ def auction_rounds_cuda(
     if b == 0 or r == 0:
         return match, done.zero_()
     lib = _load_auction()
-    tally = _round_tally.get(dev)
-    if tally is None:
-        tally = _round_tally[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    tally = launch_counts.counter("auction_rounds", dev)
     taken = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -232,8 +227,7 @@ def auction_rounds_cuda(
         )
     if err != 0:
         raise RuntimeError(f"auction kernel launch failed at B = {b}, R = {r}, C = {c}: cudaError {err}")
-    auction_launches += 1
-    auction_launches_by_path["registers" if taken.value == 1 else "global"] += 1
+    launch_counts.add(dev, "auction", "auction/registers" if taken.value == 1 else "auction/global")
     return match, done
 
 
@@ -332,11 +326,11 @@ _CU_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 _CU_LIB = os.path.join(BUILD_DIR, "liblap_jv.so")
 _build_lock = threading.Lock()
 _lib = None
-#: launches of the JV kernel (one per :func:`solve_lap` call on a CUDA tensor)
-launches = 0
-#: the same launches by the kernel's path: the cost matrix staged in shared
-#: memory, or read from global memory (a matrix too large for the block)
-launches_by_path = {"shared": 0, "global": 0}
+#: the JV kernel's launches (one per :func:`solve_lap` call on a CUDA
+#: tensor) count in :mod:`launch_counts` as ``"lap_jv"``, with the kernel's
+#: path as a detail: ``"lap_jv/shared"`` (the cost matrix staged in shared
+#: memory) or ``"lap_jv/global"`` (read from global memory, a matrix too
+#: large for the block)
 
 
 def jv_plain(cost: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -486,7 +480,6 @@ def solve_lap_cuda(cost: torch.Tensor) -> torch.Tensor:
     row_to_col (n,) or (B, n) int32, what :func:`solve_lap_plain` gives,
     left on the card.  Raises ``ValueError`` on any other input and
     ``RuntimeError`` when the kernel does not build or launch."""
-    global launches
     if cost.device.type != "cuda":
         raise ValueError(f"lap_jv kernel needs a CUDA tensor, got {cost.device}")
     _check_lap(cost)
@@ -502,8 +495,7 @@ def solve_lap_cuda(cost: torch.Tensor) -> torch.Tensor:
         err = lib.lap_jv_launch(cost.data_ptr(), b, n, out.data_ptr(), stream, ctypes.byref(taken))
     if err != 0:
         raise RuntimeError(f"lap_jv kernel launch failed at B = {b}, n = {n}: cudaError {err}")
-    launches += 1
-    launches_by_path["shared" if taken.value == 1 else "global"] += 1
+    launch_counts.add(cost.device, "lap_jv", "lap_jv/shared" if taken.value == 1 else "lap_jv/global")
     return out
 
 

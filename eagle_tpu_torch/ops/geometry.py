@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch import pitch
+from eagle_tpu_torch.utils import device_constant
 
 
 def masked_median(values: torch.Tensor, valid: torch.Tensor, interpolate: bool = False) -> torch.Tensor:
@@ -68,6 +69,15 @@ _CELL_PRIORITY = (
 ).astype(np.int64)
 
 
+def _synthesis_consts(dev) -> tuple[torch.Tensor, ...]:
+    """(x masks, y masks, grid ids, on-plane mask, cell priorities) on
+    ``dev``, uploaded once a device (:func:`device_constant`)."""
+    return device_constant(("synthesis", str(torch.device(dev))), lambda: tuple(
+        torch.from_numpy(a).to(dev)
+        for a in (_X_MASKS, _Y_MASKS, _GRID_IDS.astype(np.int64), _ON_PLANE, _CELL_PRIORITY.reshape(-1))
+    ))
+
+
 def synthesize_keypoints(
     kp_xy: torch.Tensor,
     kp_valid: torch.Tensor,
@@ -79,10 +89,8 @@ def synthesize_keypoints(
     ``max_new_points`` in the reference's iteration order; synthesized
     points are rounded to integers.  (57, 2), (57,) -> same."""
     dev = kp_xy.device
-    x_masks = torch.from_numpy(_X_MASKS).to(dev)
-    y_masks = torch.from_numpy(_Y_MASKS).to(dev)
-    ids = torch.from_numpy(_GRID_IDS).to(dev).to(torch.int64)
-    usable = kp_valid & torch.from_numpy(_ON_PLANE).to(dev)
+    x_masks, y_masks, ids, on_plane, prio = _synthesis_consts(dev)
+    usable = kp_valid & on_plane
     x_lines, x_ok = fit_lines(kp_xy, x_masks & usable[None, :])
     y_lines, y_ok = fit_lines(kp_xy, y_masks & usable[None, :])
     if min_points_per_line > 2:
@@ -95,7 +103,6 @@ def synthesize_keypoints(
 
     # cap at max_new_points in priority order: a cell is kept when fewer
     # than max_new_points ok cells precede it
-    prio = torch.from_numpy(_CELL_PRIORITY).to(dev).reshape(-1)
     ok_flat = cell_ok.reshape(-1)
     order = torch.argsort(prio)
     rank_among_ok = torch.cumsum(ok_flat[order].to(torch.int64), 0) - 1

@@ -3,19 +3,23 @@ scoring and an LMedS fallback, Gauss-Newton polish, perspective
 transforms (PyTorch counterpart of ``eagle_tpu/ops/homography.py``).
 
 The minimal sets are an input: :func:`sample_minimal_sets` turns the
-JAX package's Gumbel draw (reproduced on the host by
-:mod:`eagle_tpu_torch.ops.prng`) into the same index sets, and unit tests
-can feed both packages explicit sets.
+integer keys that order the JAX package's Gumbel draw
+(:func:`eagle_tpu_torch.ops.prng.ransac_keys`) into the same index sets,
+and unit tests can feed both packages explicit sets.
+
+Nothing here reads a device value on the host: the DLT's eigen solve is
+:func:`eagle_tpu_torch.ops.eigh.smallest_eigenvector` (a hand-written
+kernel on the card) and every pick of one hypothesis is a gather, so a
+captured CUDA graph can hold :func:`ransac_homography`.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
-from eagle_tpu_torch.ops import prng
+from eagle_tpu_torch.ops.eigh import smallest_eigenvector
 
 
 def perspective_transform(H: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -65,8 +69,7 @@ def dlt_homography(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) 
     A = torch.cat([rows_u, rows_v], dim=-2)  # (..., 2N, 9)
     ww = torch.cat([w, w], dim=-1)
     ATA = torch.matmul((A * ww[..., None]).transpose(-1, -2), A)
-    _, vecs = torch.linalg.eigh(ATA)
-    Hn = vecs[..., :, 0].reshape(*vecs.shape[:-2], 3, 3)
+    Hn = smallest_eigenvector(ATA).reshape(*ATA.shape[:-2], 3, 3)
     H = torch.linalg.solve_ex(Td, torch.matmul(Hn, Ts))[0]
     h22 = H[..., 2, 2]
     scale = torch.where(torch.abs(h22) > 1e-12, h22, torch.ones_like(h22))
@@ -119,17 +122,13 @@ def _gauss_newton_refine(H, src, dst, w, steps: int) -> torch.Tensor:
     return torch.cat([h8, torch.ones(1, dtype=h8.dtype, device=h8.device)]).reshape(3, 3)
 
 
-def ransac_gumbel(seed: int, t: int, iters: int, n: int) -> np.ndarray:
-    """The reference's per-frame Gumbel draw
-    ``jax.random.gumbel(fold_in(key(seed), t), (iters, n))``, on the host."""
-    return prng.gumbel(prng.fold_in(prng.key(seed), t), (iters, n))
-
-
-def sample_minimal_sets(gumbel: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Gumbel top-4 over the valid points: (iters, N) noise + (N,) mask ->
-    (iters, 4) indices, equal scores ordered by lower index (as
-    ``jax.lax.top_k``)."""
-    scores = gumbel + torch.where(valid, 0.0, -torch.inf)[None, :]
+def sample_minimal_sets(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Gumbel top-4 over the valid points: (iters, N) int32 keys
+    (:func:`eagle_tpu_torch.ops.prng.ransac_keys`, non-negative, in the
+    order of the JAX package's Gumbel draw) + (N,) mask -> (iters, 4)
+    indices; invalid points score -1 and equal scores are ordered by lower
+    index (as ``jax.lax.top_k``)."""
+    scores = torch.where(valid[None, :], keys, -1)
     _, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return idx[:, :4]
 
@@ -164,22 +163,22 @@ def ransac_homography(
     counts = inl.sum(-1)
     trunc = torch.where(inl, errs, torch.full_like(errs, threshold)).sum(-1)
     score = counts.to(src.dtype) * 1e6 - trunc
-    best = torch.argmax(score)
-    best_inl = inl[best]
-    ok_ransac = (nvalid >= 4) & (counts[best] >= 4)
+    best = torch.argmax(score).view(1)  # gathers, not 0-d indices: no host read
+    best_inl = inl.index_select(0, best)[0]
+    ok_ransac = (nvalid >= 4) & (counts.index_select(0, best)[0] >= 4)
     chosen_inl = best_inl
 
     if lmeds_fallback:
         sq = torch.where(valid[None, :] & finite, errs * errs, torch.full_like(errs, torch.inf))
         sq_sorted, _ = torch.sort(sq, dim=-1)
         med_idx = torch.clamp(nvalid // 2, 0, n - 1)
-        med = sq_sorted[:, med_idx]
-        best_lm = torch.argmin(torch.where(torch.isfinite(med), med, torch.full_like(med, torch.inf)))
-        med_best = med[best_lm]
+        med = sq_sorted.gather(1, med_idx.view(1, 1).expand(iters, 1))[:, 0]
+        best_lm = torch.argmin(torch.where(torch.isfinite(med), med, torch.full_like(med, torch.inf))).view(1)
+        med_best = med.index_select(0, best_lm)[0]
         nv = torch.clamp(nvalid.to(src.dtype), min=5.0)
         sigma = 2.5 * 1.4826 * (1.0 + 5.0 / (nv - 4.0)) * torch.sqrt(med_best)
         sigma = torch.clamp(sigma, min=1e-3)
-        lm_inl = (errs[best_lm] <= sigma) & valid & finite[best_lm]
+        lm_inl = (errs.index_select(0, best_lm)[0] <= sigma) & valid & finite.index_select(0, best_lm)[0]
         ok_lmeds = (nvalid >= 4) & (lm_inl.sum() >= 4) & torch.isfinite(med_best)
         use_lm = ~ok_ransac & ok_lmeds
         chosen_inl = torch.where(use_lm, lm_inl, best_inl)
@@ -197,3 +196,19 @@ def ransac_homography(
     ok = ok & (final_inl.sum() >= 4) & torch.isfinite(H).all()
     H = torch.where(ok, H, torch.eye(3, dtype=src.dtype, device=src.device))
     return H, final_inl & ok, ok
+
+
+def ransac_homography_cfg(src, dst, valid, sets, cfg) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`ransac_homography` with a ``HomographyConfig``'s threshold,
+    refinement steps and fallback (the JAX package's
+    ``ransac_homography_cfg``; the minimal ``sets`` take the place of its
+    key, ``cfg.ransac_iters`` rows of them)."""
+    return ransac_homography(
+        src,
+        dst,
+        valid,
+        sets,
+        threshold=cfg.reproj_threshold,
+        refine_steps=cfg.refine_steps,
+        lmeds_fallback=cfg.lmeds_fallback,
+    )

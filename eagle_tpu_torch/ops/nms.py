@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch.native import build_library
+from eagle_tpu_torch.ops import launch_counts
 from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
 
 MAX_WH = 7680.0  # class-separation offset (ultralytics convention)
@@ -33,8 +34,8 @@ _CU_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 _CU_LIB = os.path.join(BUILD_DIR, "libnms.so")
 _build_lock = threading.Lock()
 _lib = None
-#: launches of the NMS kernel (one per :func:`suppress` call on a CUDA tensor)
-launches = 0
+#: the NMS kernel's launches (one per :func:`suppress` call on a CUDA
+#: tensor) count in :mod:`launch_counts` as ``"nms"``
 
 
 def box_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,7 +133,6 @@ def suppress_cuda(shifted: torch.Tensor, top_valid: torch.Tensor, iou_threshold:
     workspace of ``torch.empty``).  Raises ``ValueError`` on any other
     input and ``RuntimeError`` when the kernel does not build or
     launch."""
-    global launches
     _check(shifted, top_valid)
     if shifted.device.type != "cuda":
         raise ValueError(f"the NMS kernel needs CUDA tensors, got {shifted.device}")
@@ -148,7 +148,7 @@ def suppress_cuda(shifted: torch.Tensor, top_valid: torch.Tensor, iou_threshold:
                              keep.data_ptr(), work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed at B = {nb}, k = {k}: cudaError {err}")
-    launches += 1
+    launch_counts.add(shifted.device, "nms")
     return keep
 
 
@@ -164,6 +164,23 @@ def suppress(shifted: torch.Tensor, top_valid: torch.Tensor, iou_threshold: floa
     if shifted.device.type == "cpu":
         return suppress_plain(shifted, top_valid, iou_threshold)
     return suppress_cuda(shifted, top_valid, iou_threshold)
+
+
+def nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    conf_threshold: float = 0.15,
+    iou_threshold: float = 0.7,
+    max_det: int = 128,
+    pre_topk: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-image class-aware NMS (the JAX package's ``nms``): boxes (A,
+    4) xyxy, scores (A, nc) -> boxes (max_det, 4), scores (max_det,), cls
+    (max_det,) int32, valid (max_det,) bool, score-descending; one image of
+    :func:`batched_nms` (one launch of the suppression kernel on the
+    card)."""
+    out = batched_nms(boxes[None], scores[None], conf_threshold, iou_threshold, max_det, pre_topk)
+    return tuple(o[0] for o in out)
 
 
 def batched_nms(

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from eagle_tpu_torch.native import build_library
+from eagle_tpu_torch.ops import launch_counts
 
 # cv2 BGR -> gray coefficients (their float32 values)
 _GRAY_W = tuple(float(np.float32(v)) for v in (0.114, 0.587, 0.299))
@@ -258,15 +259,12 @@ NVCC_FLAGS = (
 
 _build_lock = threading.Lock()
 _lib = None
-#: launches of the CUDA kernel (one per lk_flow call on a CUDA tensor)
-launches = 0
-#: the same launches by their point count K (57 keypoints, 240 corners)
-launches_by_k: dict[int, int] = {}
-#: the same launches by (clips C, points K): C = 1 for :func:`lk_flow`, the
-#: batch for :func:`lk_flow_clips`
-launches_by_ck: dict[tuple[int, int], int] = {}
-#: frames copied into a pitched buffer before a launch (:func:`_pitched`)
-staged = 0
+#: the kernel's launches count in :mod:`launch_counts` as ``"lk_flow"``,
+#: with details by point count K (``"lk_flow/k=57"``: 57 keypoints, 240
+#: corners) and by clips C and points K (``"lk_flow/C=1,K=57"``: C = 1 for
+#: :func:`lk_flow`, the batch for :func:`lk_flow_clips`); the frames copied
+#: into a pitched buffer before a launch (:func:`_pitched`) as
+#: ``"lk_flow/staged"``
 
 
 def _nvcc() -> str:
@@ -378,13 +376,12 @@ def _pitched(frame: torch.Tensor, pitch: int | None = None) -> tuple[torch.Tenso
     is, or a frame of :func:`upload_frames` or :func:`carry_frame`) and the
     stride is ``pitch`` where one is asked for; else a copy in a fresh
     (H, pitch) buffer, ``pitch`` defaulting to :func:`_pitch` (the
-    allocator's blocks are 512-byte aligned), counted in ``staged``."""
-    global staged
+    allocator's blocks are 512-byte aligned), counted as ``"lk_flow/staged"``."""
     h, w = frame.shape[:2]
     stride = frame.stride(0)
     if stride % 16 == 0 and frame.data_ptr() % 16 == 0 and pitch in (None, stride):
         return frame, stride
-    staged += 1
+    launch_counts.add(frame.device, "lk_flow/staged")
     pitch = pitch or _pitch(w)
     rows = torch.empty((h, pitch), dtype=torch.uint8, device=frame.device)
     rows[:, : 3 * w].view(h, w, 3).copy_(frame)
@@ -403,7 +400,6 @@ def _launch(prev, curr, h, w, pitch, clip_stride, clips, pts, valid, out_g, stat
     """One launch of the kernel over ``clips`` frame pairs and their K
     points (the wrappers checked every argument); raises on a refused
     launch, else counts it."""
-    global launches
     k = pts.shape[-2]
     side = roi_side(h, w)
     lib = _load()
@@ -424,9 +420,7 @@ def _launch(prev, curr, h, w, pitch, clip_stride, clips, pts, valid, out_g, stat
             f"tensor map refused, CUresult {_ERR_ENCODE - err}" if err <= _ERR_ENCODE else f"cudaError {err}"
         )
         raise RuntimeError(f"lk_flow kernel launch failed: {what}")
-    launches += 1
-    launches_by_k[k] = launches_by_k.get(k, 0) + 1
-    launches_by_ck[(clips, k)] = launches_by_ck.get((clips, k), 0) + 1
+    launch_counts.add(dev, "lk_flow", f"lk_flow/k={k}", f"lk_flow/C={clips},K={k}")
 
 
 def lk_flow_cuda(

@@ -9,11 +9,22 @@ data, so the port reproduces it on the host: the threefry2x32 hash, JAX's
 0.5: ``jax_threefry_partitionable``) and its uniform -> gumbel transform
 in float32.  Pinned bit-equal against ``jax.random.gumbel`` by
 ``tests/test_torch_homography.py``.
+
+:func:`ransac_keys` is the same draw made on the device from a device
+scalar ``t``, as integer keys (one launch of ``csrc/threefry.cu`` on the
+card): what a captured temporal step draws.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
+
 import numpy as np
+import torch
+
+from eagle_tpu_torch.ops import launch_counts
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -76,3 +87,115 @@ def gumbel(k: tuple[int, int], shape: tuple[int, ...]) -> np.ndarray:
     tiny = np.finfo(np.float32).tiny
     u = uniform(k, shape, tiny, 1.0)
     return -np.log(-np.log(u))
+
+
+# ---------------------------------------------------------------------------
+# the RANSAC keys of a step on the device (csrc/threefry.cu)
+# ---------------------------------------------------------------------------
+#
+# RANSAC uses the draw only to order each hypothesis's points (the Gumbel
+# top 4).  ``gumbel`` is a strictly increasing map of the 23-bit integer
+# ``random_bits >> 9``, so those integers fix the same minimal sets, ties
+# included: the keys are the draw a device step makes, in exact integer
+# arithmetic with no transcendental function.
+
+_MASK = 0xFFFFFFFF
+#: the keys kernel's launches (one per :func:`ransac_keys` call on a CUDA
+#: tensor) count in :mod:`launch_counts` as ``"ransac_keys"``
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _rotl_t(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _MASK
+
+
+def threefry2x32_torch(k0, k1, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on int64 tensors holding uint32 values (keys
+    may be tensors or ints): the same hash, in torch."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def ransac_keys_plain(seed: int, t: torch.Tensor, iters: int, n: int) -> torch.Tensor:
+    """The kernel's plain version: (iters, n) int32 ``random_bits(fold_in(
+    key(seed), t), (iters, n)) >> 9`` for a 0-d integer tensor ``t`` (the
+    frame index), on its device, with no host read of ``t``."""
+    dev = t.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    f0, f1 = threefry2x32_torch(0, int(seed) & _MASK, zero, t.to(torch.int64) & _MASK)
+    idx = torch.arange(iters * n, dtype=torch.int64, device=dev)
+    y0, y1 = threefry2x32_torch(f0, f1, idx >> 32, idx & _MASK)
+    return ((y0 ^ y1) >> 9).to(torch.int32).reshape(iters, n)
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/threefry.cu`` for sm_90a into the build directory
+    (when missing or older than the source, under the build directory's
+    file lock) and return the library path; raises with the compiler's
+    output on failure."""
+    from eagle_tpu_torch.native import build_library
+    from eagle_tpu_torch.ops.optical_flow import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "threefry.cu")
+    lib = os.path.join(BUILD_DIR, "libthreefry.so")
+    out = build_library(
+        lib, src, lambda tmp: [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, src]
+    )
+    if verbose and out:
+        print(out)
+    return lib
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.ransac_keys_launch.restype = ctypes.c_int
+            lib.ransac_keys_launch.argtypes = [
+                ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            _lib = lib
+    return _lib
+
+
+def ransac_keys_cuda(seed: int, t: torch.Tensor, iters: int, n: int) -> torch.Tensor:
+    """One launch of the keys kernel: what :func:`ransac_keys_plain` gives,
+    for a 0-d int64 CUDA tensor ``t``, left on the card.  Raises
+    ``ValueError`` on any other ``t`` and ``RuntimeError`` when the kernel
+    does not build or launch."""
+    if t.device.type != "cuda" or t.dtype != torch.int64 or t.dim() != 0:
+        raise ValueError(f"ransac_keys kernel takes a 0-d int64 CUDA tensor t, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if iters < 0 or n < 0:
+        raise ValueError(f"ransac_keys: iters and n must be >= 0, got {iters}, {n}")
+    out = torch.empty((iters, n), dtype=torch.int32, device=t.device)
+    lib = _load()
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.ransac_keys_launch(int(seed) & _MASK, t.data_ptr(), iters * n, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ransac_keys kernel launch failed: cudaError {err}")
+    launch_counts.add(t.device, "ransac_keys")
+    return out
+
+
+def ransac_keys(seed: int, t: torch.Tensor, iters: int, n: int) -> torch.Tensor:
+    """Frame ``t``'s RANSAC keys under ``seed``: (iters, n) int32, ordered
+    as the JAX package's Gumbel draw orders them
+    (:func:`eagle_tpu_torch.ops.homography.sample_minimal_sets` takes
+    either).  One launch of the keys kernel for a CUDA ``t`` (raises if it
+    does not build or launch), :func:`ransac_keys_plain` for a CPU one.
+    Never reads ``t`` on the host."""
+    fn = ransac_keys_cuda if t.device.type == "cuda" else ransac_keys_plain
+    return fn(seed, t, iters, n)

@@ -20,9 +20,12 @@ block:
   embeddings of the first ``reid_slots`` detections of each frame (OSNet
   or the HSV histogram); the keypoint model (HRNet-W48 + heatmap decode)
   on the cadence frames, in batches of ``KP_BATCH``;
-- first-frame seeding by backward flow, then the temporal step frame by
-  frame (:mod:`eagle_tpu_torch.pipeline.temporal`), with the reference's
-  on-demand keypoint rounds (at most 3);
+- first-frame seeding by backward flow, then the temporal step
+  (:mod:`eagle_tpu_torch.pipeline.temporal`) with the reference's
+  on-demand keypoint rounds (at most 3): on the card as the JAX package
+  runs it, one device program a ``chunk_frames`` chunk (a captured CUDA
+  graph of the step, :mod:`eagle_tpu_torch.pipeline.step_graph`), on the
+  CPU (and with ``gmc="features"``) a loop frame by frame;
 - the float64 host assembly of the output dicts.
 
 Models: the built-in HRNet / YOLOv8 (seeded random weights, checkpoint
@@ -86,6 +89,7 @@ from eagle_tpu_torch.ops.preprocess import (
 )
 from eagle_tpu_torch.pipeline import temporal
 from eagle_tpu_torch.pipeline.transfer import drain_together
+from eagle_tpu_torch.utils import device_constant
 from eagle_tpu_torch.utils.logging import log_event
 
 PITCH_WIDTH = 105
@@ -301,7 +305,8 @@ class CoordinateModel:
         #: temporal steps run, and on-demand keypoint rounds run (observability)
         self.frames_stepped = 0
         self.ondemand_rounds = 0
-        self._box_maps: dict = {}
+        #: the captured temporal steps, one a configuration (:meth:`_step_graph`)
+        self._step_graphs: dict = {}
 
         # the default runners are bound as the JAX package binds them; every
         # path of get_coordinates branches on the _custom_* flags instead
@@ -500,19 +505,16 @@ class CoordinateModel:
         compile-time gain, which XLA compiles as a product with its float32
         reciprocal, and maps them back to the canvas as one multiply-add:
         ``temporal._WorkMap``'s arithmetic."""
-        key = (str(dev), float(gain), tuple(pad), tuple(img_hw))
-        if key not in self._box_maps:
-            g = np.float32(gain)
-            h, w = img_hw
-            self._box_maps[key] = (
-                temporal._WorkMap(
-                    torch.tensor(g, device=dev),
-                    torch.tensor(np.float32(1.0) / g, device=dev),
-                    torch.tensor([pad[0], pad[1]], dtype=torch.float32, device=dev),
-                ),
-                torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev),
-            )
-        return self._box_maps[key]
+        g = np.float32(gain)
+        h, w = img_hw
+        return device_constant(("box_map", str(dev), float(gain), tuple(pad), tuple(img_hw)), lambda: (
+            temporal._WorkMap(
+                torch.tensor(g, device=dev),
+                torch.tensor(np.float32(1.0) / g, device=dev),
+                torch.tensor([pad[0], pad[1]], dtype=torch.float32, device=dev),
+            ),
+            torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32, device=dev),
+        ))
 
     @torch.no_grad()
     def embed(self, x: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -557,9 +559,144 @@ class CoordinateModel:
                 mem_kp[base + j, take, :2] = seed_xy[j, take]
                 mem_valid[base + j] |= seed_ok[j]
 
+    def _captured_scan(self, cfg: PipelineConfig) -> bool:
+        """Whether the temporal stage runs as captured chunks
+        (:meth:`_scan_chunks`): on a CUDA device unless the configuration
+        takes ``gmc="features"`` (its corners and robust fit run in the
+        eager loop).  ``_temporal_path`` ("chunks" or "frames") overrides
+        the choice: a private switch for comparisons and tests."""
+        path = getattr(self, "_temporal_path", None)
+        if path is not None:
+            return path == "chunks"
+        return self.device.type == "cuda" and cfg.tracker.gmc != "features"
+
+    def _step_graph(self, cfg: PipelineConfig, frame_hw, det_rows: int, det_width: int, reset_on_t0: bool):
+        """The :class:`~eagle_tpu_torch.pipeline.step_graph.StepGraph` of
+        this configuration, made once (its graph is captured at its first
+        step)."""
+        from eagle_tpu_torch.pipeline.step_graph import StepGraph
+
+        key = (cfg, tuple(frame_hw), det_rows, det_width, reset_on_t0, str(self.device))
+        if key not in self._step_graphs:
+            self._step_graphs[key] = StepGraph(cfg, frame_hw, det_rows, det_width, self.seed, reset_on_t0, self.device)
+        return self._step_graphs[key]
+
+    def _scan_frames(self, cfg, dev_frames, prev0, carry0, det, tt, kp_interval, h_interval, mem_kp, mem_valid,
+                     mem_attempted, keypoints_at, timer, reset_on_t0):
+        """The temporal stage as a loop of :func:`temporal.temporal_step`
+        frame by frame, with per-frame carry checkpoints: when the
+        reference's on-demand keypoint detection would fire (flow collapse
+        on a non-cadence frame with no memo), the flagged frames get model
+        keypoints (``keypoints_at``) and the loop resumes at the first of
+        them.  Returns (``drain()``, which gives the outputs and the
+        detector rows on the host in one copy, the last carry)."""
+        dev = self.device
+        n = len(tt)
+        keys_fn = self._ransac_draws(cfg)
+        carries = [carry0] + [None] * n
+        outs: list = [None] * n
+        start = 0
+        for _round in range(ONDEMAND_ROUNDS):
+            with timer("temporal"):
+                mk = torch.from_numpy(mem_kp).to(dev)
+                mv = torch.from_numpy(mem_valid).to(dev)
+                for t in range(start, n):
+                    tg = int(tt[t])
+                    carry = carries[t]
+                    if reset_on_t0 and tg == 0 and t > 0:
+                        carry = temporal.init_carry(cfg, dev)
+                    xs = temporal.FrameInputs(
+                        frame_bgr=dev_frames[t],
+                        prev_frame_bgr=dev_frames[t - 1] if t > 0 else prev0,
+                        model_kp=mk[t],
+                        model_kp_valid=mv[t],
+                        is_kp_frame=tg % kp_interval == 0,
+                        is_h_frame=tg % h_interval == 0,
+                        det_boxes=det[t, :, :4],
+                        det_conf=det[t, :, 4],
+                        det_cls=det[t, :, 5].to(torch.int64),
+                        det_valid=det[t, :, 6] > 0.5,
+                        t=tg,
+                        det_embed=det[t, :, 7:] if cfg.tracker.use_appearance else None,
+                    )
+                    carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, keys_fn)
+                    self.frames_stepped += 1
+                need = torch.stack([o.need_kp for o in outs]).cpu().numpy()
+            flagged = np.flatnonzero(need & ~mem_attempted)
+            if len(flagged) == 0:
+                break
+            self._ondemand(flagged, mem_kp, mem_valid, mem_attempted, keypoints_at, timer)
+            start = int(flagged[0])
+
+        def drain():
+            # the outputs and the detector rows in one device-to-host copy
+            *leaves, det_np = drain_together(
+                *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
+            )
+            return temporal.FrameOutputs(*leaves), det_np
+
+        return drain, carries[n]
+
+    def _scan_chunks(self, cfg, dev_frames, prev0, carry0, det, tt, kp_interval, h_interval, mem_kp, mem_valid,
+                     mem_attempted, keypoints_at, timer, reset_on_t0):
+        """The temporal stage as the JAX package runs it: one device program
+        a ``chunk_frames`` chunk (its ``_run_chunk``), here a captured CUDA
+        graph of :func:`temporal.temporal_step_static` replayed frame by
+        frame (:class:`~eagle_tpu_torch.pipeline.step_graph.StepGraph`;
+        the eager step on the CPU), with a carry checkpoint a chunk.  A
+        round uploads the memos once and drains its outputs and the
+        detector rows in one copy; when frames are flagged for on-demand
+        keypoints, the next round resumes at the first flagged frame's
+        chunk.  Returns what :meth:`_scan_frames` returns (the last round's
+        drain, already made)."""
+        dev = self.device
+        n = len(tt)
+        chunk = cfg.chunk_frames
+        n_chunks = -(-n // chunk)
+        sg = self._step_graph(cfg, dev_frames.shape[1:3], det.shape[1], det.shape[2], reset_on_t0)
+        with timer("temporal"):
+            steps = torch.from_numpy(np.stack([tt, tt % kp_interval == 0, tt % h_interval == 0])).to(dev)
+            t_dev, is_kp, is_h = steps[0], steps[1] > 0, steps[2] > 0
+        carries = [carry0] + [None] * n_chunks
+        outs: list = [None] * n_chunks
+        start = 0
+        for _round in range(ONDEMAND_ROUNDS):
+            with timer("temporal"):
+                memo = torch.from_numpy(np.concatenate([mem_kp, mem_valid[..., None].astype(np.float32)], -1)).to(dev)
+                for k in range(start, n_chunks):
+                    lo, hi = k * chunk, min(n, (k + 1) * chunk)
+
+                    def pair(i, lo=lo):
+                        t = lo + i
+                        return (dev_frames[t - 1] if t > 0 else prev0), dev_frames[t]
+
+                    carries[k + 1], outs[k] = sg.run_chunk(
+                        carries[k], pair, memo[lo:hi, :, :3], memo[lo:hi, :, 3] > 0.5, det[lo:hi], t_dev[lo:hi],
+                        is_kp[lo:hi], is_h[lo:hi],
+                    )
+                    self.frames_stepped += hi - lo
+                packed, det_np = drain_together(torch.cat(outs), det[..., :7])
+            out = temporal.unpack_outputs(packed, cfg.tracker.max_tracks)
+            flagged = np.flatnonzero(out.need_kp & ~mem_attempted)
+            if len(flagged) == 0:
+                break
+            self._ondemand(flagged, mem_kp, mem_valid, mem_attempted, keypoints_at, timer)
+            start = int(flagged[0]) // chunk
+        return (lambda: (out, det_np)), carries[n_chunks]
+
+    def _ondemand(self, flagged, mem_kp, mem_valid, mem_attempted, keypoints_at, timer) -> None:
+        """An on-demand keypoint round: the flagged frames' model keypoints
+        memoized in place."""
+        self.ondemand_rounds += 1
+        with timer("keypoints"):
+            packed = keypoints_at(flagged.tolist())
+            mem_kp[flagged] = packed[..., :3]
+            mem_valid[flagged] = packed[..., 3] > 0.5
+            mem_attempted[flagged] = True
+
     def _ransac_draws(self, cfg: PipelineConfig):
-        """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw under the model's
-        seed, on its device (:func:`temporal.ransac_draws`)."""
+        """``keys_fn(t)``: frame t's RANSAC keys under the model's seed, on
+        its device (:func:`temporal.ransac_draws`)."""
         return temporal.ransac_draws(self.seed, cfg, self.device)
 
     def _default_keypoint_fn(self, frames_bgr):
@@ -761,67 +898,22 @@ class CoordinateModel:
             self._seed_clips(spans, sampled, mem_kp, mem_valid, cfg,
                              lambda lo, hi: self._seed_frames(prescaled, geom, dev_frames, lo, hi))
             prescaled = None  # seeding was the host copy's last reader
-        gumbel_fn = self._ransac_draws(cfg)
-
-        # the temporal step, frame by frame, with per-frame carry
-        # checkpoints: when the reference's on-demand keypoint detection
-        # would fire (flow collapse on a non-cadence frame with no memo),
-        # the flagged frames get model keypoints and the loop resumes at the
-        # first of them.  A stream's block starts from the previous block's
-        # carry, and its first frame flows from that block's last frame;
-        # the rounds stay inside the block.  Flattened clips restart from
-        # init_carry at each clip's first frame, whose previous frame is the
-        # stream's previous frame (the JAX package's flattened scan)
-        carries = [temporal.init_carry(cfg, dev) if _stream_in is None else _stream_in["carry"]] + [None] * n
-        outs: list = [None] * n
-        start = 0
-        for _round in range(ONDEMAND_ROUNDS):
-            with timer("temporal"):
-                mk = torch.from_numpy(mem_kp).to(dev)
-                mv = torch.from_numpy(mem_valid).to(dev)
-                for t in range(start, n):
-                    if t > 0:
-                        prev = dev_frames[t - 1]
-                    else:
-                        prev = dev_frames[0] if _stream_in is None else _stream_in["prev_frame"]
-                    tg = int(tt[t])
-                    carry = carries[t]
-                    if _clip_lens is not None and tg == 0 and t > 0:
-                        carry = temporal.init_carry(cfg, dev)
-                    xs = temporal.FrameInputs(
-                        frame_bgr=dev_frames[t],
-                        prev_frame_bgr=prev,
-                        model_kp=mk[t],
-                        model_kp_valid=mv[t],
-                        is_kp_frame=tg % kp_interval == 0,
-                        is_h_frame=tg % h_interval == 0,
-                        det_boxes=det[t, :, :4],
-                        det_conf=det[t, :, 4],
-                        det_cls=det[t, :, 5].to(torch.int64),
-                        det_valid=det[t, :, 6] > 0.5,
-                        t=tg,
-                        det_embed=det[t, :, 7:] if appearance else None,
-                    )
-                    carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, gumbel_fn)
-                    self.frames_stepped += 1
-                need = torch.stack([o.need_kp for o in outs]).cpu().numpy()
-            flagged = np.flatnonzero(need & ~mem_attempted)
-            if len(flagged) == 0:
-                break
-            self.ondemand_rounds += 1
-            with timer("keypoints"):
-                packed = self._keypoints_at(flagged.tolist(), frames, dev_frames, geom, img_hw)
-                mem_kp[flagged] = packed[..., :3]
-                mem_valid[flagged] = packed[..., 3] > 0.5
-                mem_attempted[flagged] = True
-            start = int(flagged[0])
+        # the temporal stage with the reference's on-demand keypoint rounds.
+        # A stream's block starts from the previous block's carry, and its
+        # first frame flows from that block's last frame; the rounds stay
+        # inside the block.  Flattened clips restart from init_carry at each
+        # clip's first frame, whose previous frame is the stream's previous
+        # frame (the JAX package's flattened scan)
+        prev0 = dev_frames[0] if _stream_in is None else _stream_in["prev_frame"]
+        carry0 = temporal.init_carry(cfg, dev) if _stream_in is None else _stream_in["carry"]
+        scan = self._scan_chunks if self._captured_scan(cfg) else self._scan_frames
+        drain, carry_n = scan(
+            cfg, dev_frames, prev0, carry0, det, tt, kp_interval, h_interval, mem_kp, mem_valid, mem_attempted,
+            lambda idx: self._keypoints_at(idx, frames, dev_frames, geom, img_hw), timer, _clip_lens is not None,
+        )
 
         with timer("assembly"):
-            # the outputs and the detector rows in one device-to-host copy
-            *leaves, det_np = drain_together(
-                *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
-            )
-            out = temporal.FrameOutputs(*leaves)
+            out, det_np = drain()
             parts = [(0, n, t0)] if _clip_lens is None else [(ci * L, ln, 0) for ci, ln in enumerate(_clip_lens)]
             res = [
                 self._assemble(
@@ -845,7 +937,7 @@ class CoordinateModel:
             # the last frame in a buffer of its own (its clip's buffer is
             # freed), with the clip's row stride: the next block's first
             # flow step reads it in place
-            state = {"carry": carries[n], "prev_frame": carry_frame(dev_frames[n - 1]), "t": t0 + n, "img_hw": img_hw}
+            state = {"carry": carry_n, "prev_frame": carry_frame(dev_frames[n - 1]), "t": t0 + n, "img_hw": img_hw}
             return res[0], state
         return res[0]
 

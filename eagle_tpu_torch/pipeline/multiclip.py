@@ -160,7 +160,7 @@ class MultiClipRunner:
                 [(ci * L, ln) for ci, ln in enumerate(lengths)], sampled, mem_kp, mem_valid, cfg,
                 lambda lo, hi: frames[lo:hi] if canvas else upload_frames(flat[lo:hi], dev),
             )
-        gumbel_fn = model._ransac_draws(cfg)
+        keys_fn = model._ransac_draws(cfg)
 
         # the clip-batched step over t = 0..L-1, with per-step carry
         # checkpoints; an on-demand round reruns from its first flagged step
@@ -188,7 +188,7 @@ class MultiClipRunner:
             with timer("temporal"):
                 xs = xs._replace(model_kp=torch.from_numpy(mem_kp).to(dev).unflatten(0, (C, L)),
                                  model_kp_valid=torch.from_numpy(mem_valid).to(dev).unflatten(0, (C, L)))
-                temporal.scan_clips(carries, outs, xs, cfg, gumbel_fn, start)
+                temporal.scan_clips(carries, outs, xs, cfg, keys_fn, start)
                 model.frames_stepped += C * (L - start)
                 need = torch.stack([o.need_kp for o in outs], dim=1).cpu().numpy()
             flagged = np.flatnonzero((need & real).reshape(-1) & ~mem_attempted)

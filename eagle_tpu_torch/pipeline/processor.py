@@ -118,6 +118,32 @@ def calculate_distance(pt1, pt2):
     return np.sqrt((pt1[0] - pt2[0]) ** 2 + (pt1[1] - pt2[1]) ** 2)
 
 
+PITCH_WIDTH = 105
+PITCH_HEIGHT = 68
+
+#: jersey colour bins as cv2-HSV (lower, upper) ranges, the reference's
+#: table (the JAX package's ``COLOR_RANGES``)
+COLOR_RANGES = {
+    "red": [(0, 100, 100), (10, 255, 255)],
+    "red2": [(160, 100, 100), (179, 255, 255)],
+    "orange": [(11, 100, 100), (25, 255, 255)],
+    "yellow": [(26, 100, 100), (35, 255, 255)],
+    "green": [(36, 100, 100), (85, 255, 255)],
+    "cyan": [(86, 100, 100), (95, 255, 255)],
+    "blue": [(96, 100, 100), (125, 255, 255)],
+    "purple": [(126, 100, 100), (145, 255, 255)],
+    "magenta": [(146, 100, 100), (159, 255, 255)],
+    "white": [(0, 0, 200), (180, 30, 255)],
+    "gray": [(0, 0, 50), (180, 30, 200)],
+    "black": [(0, 0, 0), (180, 255, 50)],
+}
+color_ranges = COLOR_RANGES  # reference-compatible alias
+
+
+class KalmanFilter(CvKalman2D):
+    """Reference-compatible alias of the ball selector's filter."""
+
+
 def _split_xy(values) -> tuple[np.ndarray, np.ndarray]:
     """Column of (x, y) tuples / lists / missing -> two float arrays."""
     n = len(values)

@@ -12,8 +12,12 @@ the tracker.  Per frame, in order:
   3. geometric keypoint synthesis, then the brightness-snap calibration
      when ``PipelineConfig.calibration`` is on;
   4. RANSAC homography at the configured cadence, with retry on failure
-     and inlier filtering -- ``lax.cond`` becomes a Python ``if`` on a
-     host bool, one device sync per frame;
+     and inlier filtering -- in :func:`temporal_step` ``lax.cond`` becomes
+     a Python ``if`` on a host bool, one device sync per frame; in
+     :func:`temporal_step_static`, the step a CUDA graph captures
+     (:mod:`eagle_tpu_torch.pipeline.step_graph`), RANSAC runs every frame
+     and ``torch.where`` selects its result, as ``lax.cond`` under
+     ``vmap``;
   5. a BoT-SORT step on the frame's detections (with their appearance
      embeddings when ``TrackerConfig.use_appearance``), after the camera-
      motion warp: fitted to the keypoint flow, or with ``gmc="features"``
@@ -38,9 +42,11 @@ from eagle_tpu_torch.config import PipelineConfig
 from eagle_tpu_torch.ops import color
 from eagle_tpu_torch.ops.corners import fit_similarity_robust, grid_corners
 from eagle_tpu_torch.ops.geometry import masked_median, synthesize_keypoints
-from eagle_tpu_torch.ops.homography import ransac_gumbel, ransac_homography, sample_minimal_sets
+from eagle_tpu_torch.ops.homography import ransac_homography, sample_minimal_sets
 from eagle_tpu_torch.ops.optical_flow import lk_flow, lk_flow_clips
+from eagle_tpu_torch.ops.prng import ransac_keys
 from eagle_tpu_torch.track import botsort
+from eagle_tpu_torch.utils import device_constant
 
 FLOW_BACKENDS = ("xla", "pallas2")
 
@@ -161,11 +167,22 @@ class _WorkMap(NamedTuple):
 def _to_work(cfg: PipelineConfig, dev) -> _WorkMap:
     g = cfg.work
     gain = np.float32(g.gain if g.enabled else 1.0)
-    return _WorkMap(
-        torch.tensor(gain, device=dev),
-        torch.tensor(np.float32(1.0) / gain, device=dev),
-        torch.tensor([g.pad_x, g.pad_y] if g.enabled else [0.0, 0.0], dtype=torch.float32, device=dev),
+    return device_constant(
+        ("work", str(torch.device(dev)), float(gain), (g.pad_x, g.pad_y) if g.enabled else (0, 0)),
+        lambda: _WorkMap(
+            torch.tensor(gain, device=dev),
+            torch.tensor(np.float32(1.0) / gain, device=dev),
+            torch.tensor([g.pad_x, g.pad_y] if g.enabled else [0.0, 0.0], dtype=torch.float32, device=dev),
+        ),
     )
+
+
+def _on_plane(dev) -> torch.Tensor:
+    return device_constant(("on_plane", str(torch.device(dev))), lambda: torch.from_numpy(_ON_PLANE).to(dev))
+
+
+def _world_xy(dev) -> torch.Tensor:
+    return device_constant(("world_xy", str(torch.device(dev))), lambda: torch.from_numpy(_WORLD_XY).to(dev))
 
 
 def _flow_args(cfg: PipelineConfig) -> dict:
@@ -284,12 +301,21 @@ def _calibrate(frame_bgr, kp_xy, kp_valid, cfg: PipelineConfig) -> torch.Tensor:
     return torch.where(moved, torch.trunc(wmap.to_orig(snapped)), kp_xy)
 
 
+def _flag(v, dev) -> torch.Tensor:
+    """A host bool as a 0-d bool tensor on ``dev`` (a fill, no copy); a
+    device flag as it is."""
+    return v if isinstance(v, torch.Tensor) else torch.full((), bool(v), dtype=torch.bool, device=dev)
+
+
 def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, flow=None):
     """Flow + cadence merge + synthesis + calibration.  Returns (flow_xy,
     flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h) with do_h a
     0-d bool tensor.  ``flow``: the filtered flow, when the caller ran it
-    (the clip-batched step)."""
-    t0 = xs.t > 0
+    (the clip-batched step).  ``xs.t``, ``is_kp_frame`` and ``is_h_frame``
+    are host values, or 0-d device tensors (:func:`temporal_step_static`),
+    and then nothing is read on the host."""
+    dev = carry.kp_xy.device
+    t0, kp_frame = _flag(xs.t > 0, dev), _flag(xs.is_kp_frame, dev)
     if flow is None:
         flow = flow_with_filters(xs.frame_bgr, xs.prev_frame_bgr, carry.kp_xy, carry.kp_valid & t0, cfg)
     flow_xy, flow_valid = flow
@@ -298,11 +324,11 @@ def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, 
     model_xy = xs.model_kp[:, :2]
     model_count = model_valid.sum()
     # flow participates on non-model frames, or when the model found < 4
-    use_flow = (model_count < 4) | (not xs.is_kp_frame) if t0 else torch.zeros((), dtype=torch.bool, device=model_xy.device)
+    use_flow = t0 & ((model_count < 4) | ~kp_frame)
     kp_valid = (flow_valid & use_flow) | model_valid
     kp_xy = torch.where(model_valid[:, None], model_xy, flow_xy)
     # reference on-demand detection trigger
-    need_kp = (model_count == 0) & (flow_valid.sum() < 4) & (t0 and not xs.is_kp_frame)
+    need_kp = (model_count == 0) & (flow_valid.sum() < 4) & t0 & ~kp_frame
 
     if cfg.synthesis.enabled:
         syn_xy, syn_valid = synthesize_keypoints(
@@ -318,16 +344,18 @@ def _pre_homography(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, 
     if cfg.calibration:
         kp_xy = _calibrate(xs.frame_bgr, kp_xy, kp_valid, cfg)
 
-    corr_valid = kp_valid & torch.from_numpy(_ON_PLANE).to(kp_valid.device)
+    corr_valid = kp_valid & _on_plane(kp_valid.device)
     do_h = (xs.is_h_frame | carry.retry_h) & (corr_valid.sum() >= cfg.homography.min_points)
     return flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h
 
 
-def _run_ransac(kp_xy, corr_valid, gumbel: torch.Tensor, cfg: PipelineConfig):
-    sets = sample_minimal_sets(gumbel, corr_valid)
+def _run_ransac(kp_xy, corr_valid, keys: torch.Tensor, cfg: PipelineConfig):
+    """RANSAC on the frame's correspondences, its minimal sets ordered by
+    the frame's ``keys`` (:func:`ransac_keys`)."""
+    sets = sample_minimal_sets(keys, corr_valid)
     return ransac_homography(
         kp_xy.to(torch.float32),
-        torch.from_numpy(_WORLD_XY).to(kp_xy.device),
+        _world_xy(kp_xy.device),
         corr_valid,
         sets,
         threshold=cfg.homography.reproj_threshold,
@@ -340,21 +368,47 @@ def temporal_step(
     carry: TemporalCarry,
     xs: FrameInputs,
     cfg: PipelineConfig,
-    gumbel_fn,
+    keys_fn,
 ) -> tuple[TemporalCarry, FrameOutputs]:
-    """One frame.  ``gumbel_fn(t)`` returns the frame's (iters, 57) RANSAC
-    Gumbel noise as a tensor on the device (drawn only on frames that
+    """One frame.  ``keys_fn(t)`` returns the frame's (iters, 57) RANSAC
+    keys on the device (:func:`ransac_draws`; drawn only on frames that
     solve a homography)."""
     flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(
         carry, xs, cfg
     )
     if bool(do_h):
-        H_new, inliers, h_success = _run_ransac(kp_xy, corr_valid, gumbel_fn(xs.t), cfg)
+        H_new, inliers, h_success = _run_ransac(kp_xy, corr_valid, keys_fn(xs.t), cfg)
     else:
         H_new, inliers = carry.H, kp_valid
         h_success = torch.zeros((), dtype=torch.bool, device=kp_xy.device)
     return _post_homography(
         carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
+    )
+
+
+def temporal_step_static(
+    carry: TemporalCarry,
+    xs: FrameInputs,
+    cfg: PipelineConfig,
+    seed: int,
+) -> tuple[TemporalCarry, FrameOutputs]:
+    """One frame with every branch on the device, the step a CUDA graph
+    captures (:mod:`eagle_tpu_torch.pipeline.step_graph`): ``xs.t`` (0-d
+    int64), ``is_kp_frame`` and ``is_h_frame`` (0-d bool) are device
+    tensors, and nothing is read on the host.  RANSAC runs on every frame,
+    its minimal sets ordered by the frame's keys drawn on the device
+    (:func:`eagle_tpu_torch.ops.prng.ransac_keys` under ``seed``), and its
+    result is selected by ``do_h``: the skip branch keeps ``(carry.H,
+    kp_valid, False)``, as the select that the JAX package's ``lax.cond``
+    lowers to under ``vmap``.  The draw depends only on ``t``, so the carry
+    and outputs equal :func:`temporal_step`'s bit for bit."""
+    flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(carry, xs, cfg)
+    keys = ransac_keys(seed, xs.t, cfg.homography.ransac_iters, 57)
+    H_r, inl_r, ok_r = _run_ransac(kp_xy, corr_valid, keys, cfg)
+    H_new = torch.where(do_h, H_r, carry.H)
+    inliers = torch.where(do_h, inl_r, kp_valid)
+    return _post_homography(
+        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, do_h & ok_r
     )
 
 
@@ -460,7 +514,7 @@ def temporal_step_clips(
     carries: TemporalCarry,
     xs: FrameInputs,
     cfg: PipelineConfig,
-    gumbel_fn,
+    keys_fn,
 ) -> tuple[TemporalCarry, FrameOutputs]:
     """One time step for a batch of C clips: every carry and input leaf has
     a leading clip axis (``is_kp_frame``, ``is_h_frame`` and ``t`` are host
@@ -472,7 +526,7 @@ def temporal_step_clips(
       ``gmc="features"`` the 240 grid corners of all clips one more;
     - RANSAC is gated once, on any clip's ``do_h`` (one host sync): then
       every clip solves, each with its own within-clip ``t``'s draws
-      (``gumbel_fn(t)``), and keeps its result only where its own gate is
+      (``keys_fn(t)``), and keeps its result only where its own gate is
       on (``h_success = ok & do_h``);
     - the merge, synthesis, calibration and the tracker run clip by clip.
 
@@ -497,7 +551,7 @@ def temporal_step_clips(
     do_h = torch.stack([p[6] for p in pre])
     dev = do_h.device
     if bool(do_h.any()):
-        solved = [_run_ransac(p[2], p[5], gumbel_fn(x.t), cfg) for p, x in zip(pre, clips)]
+        solved = [_run_ransac(p[2], p[5], keys_fn(x.t), cfg) for p, x in zip(pre, clips)]
     else:
         solved = [(car.H, p[3], torch.zeros((), dtype=torch.bool, device=dev)) for car, p in zip(cars, pre)]
     steps = [
@@ -508,17 +562,15 @@ def temporal_step_clips(
 
 
 def ransac_draws(seed: int, cfg: PipelineConfig, device):
-    """``gumbel_fn(t)``: frame t's RANSAC Gumbel draw under ``seed`` (the JAX
-    package's ``fold_in(key(seed), t)`` stream, reproduced on the host) as
-    a tensor on ``device``, made once a ``t``."""
-    cache: dict[int, torch.Tensor] = {}
+    """``keys_fn(t)``: host frame t's RANSAC keys under ``seed`` (the JAX
+    package's ``fold_in(key(seed), t)`` stream, :func:`ransac_keys`) on
+    ``device``: the draw the captured step makes, from an uploaded ``t``."""
+    iters = cfg.homography.ransac_iters
 
-    def gumbel_fn(t: int) -> torch.Tensor:
-        if t not in cache:
-            cache[t] = torch.from_numpy(ransac_gumbel(seed, t, cfg.homography.ransac_iters, 57)).to(device)
-        return cache[t]
+    def keys_fn(t: int) -> torch.Tensor:
+        return ransac_keys(seed, torch.tensor(t, dtype=torch.int64, device=device), iters, 57)
 
-    return gumbel_fn
+    return keys_fn
 
 
 def scan_chunk(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, base_key: int):
@@ -529,17 +581,17 @@ def scan_chunk(carry: TemporalCarry, xs: FrameInputs, cfg: PipelineConfig, base_
     frames' global indices, which the RANSAC draws fold in.  ``base_key``:
     the draws' seed (the JAX package's ``jax.random.key(seed)``).  Returns
     (the final carry, :class:`FrameOutputs` stacked over time)."""
-    gumbel_fn = ransac_draws(base_key, cfg, carry.kp_xy.device)
+    keys_fn = ransac_draws(base_key, cfg, carry.kp_xy.device)
     outs = []
     for i in range(len(xs.t)):
         x = FrameInputs(*(None if v is None else v[i] for v in xs))
         x = x._replace(is_kp_frame=bool(x.is_kp_frame), is_h_frame=bool(x.is_h_frame), t=int(x.t))
-        carry, out = temporal_step(carry, x, cfg, gumbel_fn)
+        carry, out = temporal_step(carry, x, cfg, keys_fn)
         outs.append(out)
     return carry, stack_clips(outs)
 
 
-def scan_clips(carries: list, outs: list, xs: FrameInputs, cfg: PipelineConfig, gumbel_fn, start: int = 0) -> None:
+def scan_clips(carries: list, outs: list, xs: FrameInputs, cfg: PipelineConfig, keys_fn, start: int = 0) -> None:
     """The clip-batched step over time (the loop of the JAX package's
     ``multi_clip_scan``): :func:`temporal_step_clips` at t = start..L-1.
     ``xs`` holds C clips' inputs, clip axis first and time second (its
@@ -557,7 +609,7 @@ def scan_clips(carries: list, outs: list, xs: FrameInputs, cfg: PipelineConfig, 
             is_h_frame=[bool(v) for v in x.is_h_frame],
             t=[int(v) for v in x.t],
         )
-        carries[t + 1], outs[t] = temporal_step_clips(carries[t], x, cfg, gumbel_fn)
+        carries[t + 1], outs[t] = temporal_step_clips(carries[t], x, cfg, keys_fn)
 
 
 def pack_outputs(out: FrameOutputs) -> torch.Tensor:
@@ -566,6 +618,11 @@ def pack_outputs(out: FrameOutputs) -> torch.Tensor:
     ``pack_outputs``), so it crosses to the host as one copy."""
     n = out.kp_xy.shape[0]
     return torch.cat([a.to(torch.float32).reshape(n, -1) for a in out], dim=-1)
+
+
+def packed_width(max_tracks: int) -> int:
+    """The width F of :func:`pack_outputs`' rows."""
+    return 57 * 2 + 57 + 1 + 9 + 1 + max_tracks * 8
 
 
 def unpack_outputs(arr: np.ndarray, max_tracks: int) -> FrameOutputs:

@@ -1,3 +1,10 @@
 """Reference-shaped import path (`eagle.processor` -> `eagle_tpu_torch.processor`)."""
 
-from eagle_tpu_torch.pipeline.processor import Processor, interpolate_df, smooth_df  # noqa: F401
+from eagle_tpu_torch.pipeline.processor import (  # noqa: F401
+    KalmanFilter,
+    Processor,
+    calculate_distance,
+    color_ranges,
+    interpolate_df,
+    smooth_df,
+)

@@ -34,7 +34,9 @@ __all__ = ["StageProfile", "StageTimer", "block", "device_trace", "profile_stage
 
 #: the trace's event categories that are device work
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-#: host calls that wait for the device
+#: host calls that may wait for the device (:func:`profile_stages` counts
+#: them all, and apart those that do wait: every one but a copy from the
+#: card to the card)
 BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
 
@@ -101,7 +103,9 @@ class StageProfile(NamedTuple):
     """:func:`profile_stages`' summary.  ``stages``: per stage, the wall
     ms, the device's busy ms (the union of the kernels and copies inside
     the stage's ranges) and idle share, the host's ms blocked in
-    synchronising calls and their count.  ``kernels``: every device
+    synchronising calls and their count (``blocking_calls``: every call
+    of :data:`BLOCKING_CALLS`; ``waiting_calls``: those but the copies from
+    the card to the card, which do not wait).  ``kernels``: every device
     operation's name -> (count, ms).  ``stage_kernels``: per stage, the
     names of the device kernels that ran inside it -> count."""
 
@@ -118,8 +122,13 @@ def profile_stages(model, frames, fps: int, **kw) -> StageProfile:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.get_coordinates(frames, fps, timer=timer, **kw)
         torch.cuda.synchronize()
-    ranges, device, blocking = {}, [], []
-    for e in trace_events(prof):
+    ranges, device, blocking, waiting = {}, [], [], []
+    events = trace_events(prof)
+    # a copy from the card to the card does not wait for it (the captured
+    # temporal step's frame slots are filled that way)
+    on_card = {e.get("args", {}).get("correlation") for e in events
+               if e.get("cat") == "gpu_memcpy" and "DtoD" in e["name"]} - {None}
+    for e in events:
         span = (e["ts"], e["ts"] + e["dur"])
         if e.get("cat") == "user_annotation" and e["name"].startswith("stage:"):
             ranges.setdefault(e["name"][len("stage:"):], []).append(span)
@@ -127,6 +136,8 @@ def profile_stages(model, frames, fps: int, **kw) -> StageProfile:
             device.append((span, e["name"], e["cat"]))
         elif e.get("cat") == "cuda_runtime" and e["name"] in BLOCKING_CALLS:
             blocking.append(span)
+            if e.get("args", {}).get("correlation") not in on_card:
+                waiting.append(span)
 
     def inside(spans, rs):
         return [(max(a, r0), min(b, r1)) for a, b in spans for r0, r1 in rs if a < r1 and b > r0]
@@ -141,6 +152,7 @@ def profile_stages(model, frames, fps: int, **kw) -> StageProfile:
             "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
             "host_blocked_ms": _union_ms(inside(blocking, rs)),
             "blocking_calls": len(inside(blocking, rs)),
+            "waiting_calls": len(inside(waiting, rs)),
         }
         counts: dict = {}
         for sp, kname, cat in device:

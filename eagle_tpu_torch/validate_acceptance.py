@@ -313,7 +313,8 @@ def gate_c_pitch_rmse(g, weights_dir, frames, dry_run, device):
             failures += 1
             continue
         valid = torch.from_numpy(ok).to(device)
-        sets = sample_minimal_sets(torch.from_numpy(prng.gumbel(prng.key(i), (cfg.ransac_iters, 57))).to(device), valid)
+        keys = (prng.random_bits(prng.key(i), (cfg.ransac_iters, 57)) >> 9).astype(np.int32)
+        sets = sample_minimal_sets(torch.from_numpy(keys).to(device), valid)
         H_dev, _, found = ransac_homography(
             torch.from_numpy(kp_xy[i]).to(device), torch.from_numpy(world).to(device), valid, sets,
             threshold=cfg.reproj_threshold, refine_steps=cfg.refine_steps, lmeds_fallback=cfg.lmeds_fallback,

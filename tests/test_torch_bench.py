@@ -102,11 +102,12 @@ def test_bench_runs_at_a_tiny_size_on_the_cpu(params, capsys):
     assert head["players_pitch_error_m_median"] < 2.0
     assert head["prescale_ms_per_frame"] > 0 and head["temporal_ms_per_frame"] > 0
     for key in ("dispatch_ms", "rtt_ms", "peak_device_memory_GiB", "temporal_blocking_calls_per_frame",
-                "temporal_device_idle_share", "detector_device_idle_share", "traced_kernels"):
+                "temporal_waiting_calls_per_frame", "temporal_device_idle_share", "detector_device_idle_share",
+                "traced_kernels", "traced_run_launches"):
         assert head[key] is None, key
     assert list(head["launches"]) == list(bench.PATHS)
     for counts in head["launches"].values():
-        assert counts == {"lk_flow": 0, "auction": 0, "nms": 0, "lap_jv": 0}
+        assert counts == {"lk_flow": 0, "auction": 0, "nms": 0, "ransac_keys": 0, "eigh9": 0, "lap_jv": 0}
 
 
 def test_injection_cursor_follows_the_batches(params):

@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from eagle_tpu_torch.ops import assignment as lap
+from eagle_tpu_torch.ops import launch_counts as lc
 from eagle_tpu_torch.ops import nms
 from eagle_tpu_torch.ops import optical_flow as of
 from eagle_tpu_torch.utils.kernel_cases import (
@@ -111,11 +112,11 @@ def _case(dev, k, hw=(544, 960)):
 )
 def test_kernel_matches_plain(dev, hw, k):
     prev, curr, pts, valid = _case(dev, k, hw)
-    before = of.launches
+    before = lc.get("lk_flow")
     kp, ks = of.lk_flow(prev, curr, pts, valid)
     pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
     torch.cuda.synchronize()
-    assert of.launches == before + 1
+    assert lc.get("lk_flow") == before + 1
     ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
     np.testing.assert_array_equal(ks, ps)
     assert ps.sum() >= (k - 1) // 2
@@ -140,7 +141,7 @@ def test_one_device_kernel_per_call(dev, tmp_path):
 
 def test_kernel_checks_its_inputs(dev):
     prev, curr, pts, valid = _case(dev, 8)
-    before = of.launches
+    before = lc.get("lk_flow")
     with pytest.raises(ValueError, match="CUDA"):
         of.lk_flow_cuda(prev.cpu(), curr.cpu(), pts.cpu(), valid.cpu())
     with pytest.raises(ValueError, match="prev_bgr"):  # frames on another device than the points
@@ -159,7 +160,7 @@ def test_kernel_checks_its_inputs(dev):
         of.lk_flow_cuda(prev, curr.transpose(0, 1).contiguous().transpose(0, 1), pts, valid)
     with pytest.raises(ValueError, match="odd window"):
         of.lk_flow_cuda(prev, curr, pts, valid, window=16)
-    assert of.launches == before
+    assert lc.get("lk_flow") == before
 
 
 def test_kernel_stages_a_frame_off_the_16_byte_grid(dev):
@@ -171,11 +172,11 @@ def test_kernel_stages_a_frame_off_the_16_byte_grid(dev):
     shifted = flat[1:].view(prev.shape)
     shifted.copy_(prev)
     assert shifted.data_ptr() % 16
-    before = of.launches
+    before = lc.get("lk_flow")
     kp, ks = of.lk_flow(shifted, curr, pts, valid)
     pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
     torch.cuda.synchronize()
-    assert of.launches == before + 1
+    assert lc.get("lk_flow") == before + 1
     ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
     np.testing.assert_array_equal(ks, ps)
     np.testing.assert_allclose(kp.cpu().numpy()[ps], pp.cpu().numpy()[ps], atol=1e-2)
@@ -193,11 +194,11 @@ def test_kernel_reads_uploaded_padded_frames_in_place(dev, hw):
     assert of._pitched(up[1])[0].data_ptr() == up[1].data_ptr()
     pts = torch.from_numpy(_points(57, hw)).to(dev)
     valid = torch.ones(57, dtype=torch.bool, device=dev)
-    before = of.launches
+    before = lc.get("lk_flow")
     kp, ks = of.lk_flow(up[0], up[1], pts, valid)
     pp, ps = of.lk_flow_plain(up[0].contiguous(), up[1].contiguous(), pts, valid)
     torch.cuda.synchronize()
-    assert of.launches == before + 1
+    assert lc.get("lk_flow") == before + 1
     np.testing.assert_array_equal(up.cpu().numpy(), np.stack([prev_np, curr_np]))
     ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
     np.testing.assert_array_equal(ks, ps)
@@ -224,11 +225,11 @@ def test_kernel_matches_plain_on_grid_corners(dev, canvas):
     assert all(of._pitched(f)[0].data_ptr() == f.data_ptr() for f in (prev, curr))
     pts, valid = grid_corners(prev)
     assert pts.shape == (240, 2) and int(valid.sum()) >= 100
-    before = of.launches_by_k.get(240, 0)
+    before = lc.get("lk_flow/k=240")
     kp, ks = of.lk_flow(prev, curr, pts, valid)
     pp, ps = of.lk_flow_plain(prev, curr, pts, valid)
     torch.cuda.synchronize()
-    assert of.launches_by_k.get(240, 0) == before + 1
+    assert lc.get("lk_flow/k=240") == before + 1
     ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
     np.testing.assert_array_equal(ks, ps)
     assert ps.sum() >= 100
@@ -286,14 +287,15 @@ def test_stream_on_the_card_equals_one_shot_without_staging(dev):
     one = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda").get_coordinates(
         frames, 8, num_keypoint_detection=2)
     model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
-    of.staged, launches = 0, of.launches
+    lc.reset("lk_flow/staged")
+    launches = lc.get("lk_flow")
     blocks = list(model.stream_coordinates([frames[:10], frames[10:33], frames[33:]], 8, num_keypoint_detection=2,
                                            prefetch=False))
     torch.cuda.synchronize()
     assert [len(b) for b in blocks] == [32, 8]
     assert {k: v for b in blocks for k, v in b.items()} == one
-    assert of.staged == 0
-    assert of.launches - launches >= len(frames) - 1
+    assert lc.get("lk_flow/staged") == 0
+    assert lc.get("lk_flow") - launches >= len(frames) - 1
     assert sum(len(fr["Keypoints"]) for fr in one.values()) > 4 * len(frames)
 
 
@@ -319,10 +321,10 @@ def test_batched_launch_equals_single_launches_and_plain(dev, hw, k):
     pts = torch.stack([torch.from_numpy(_points(k, hw, seed=10 + c)) for c in range(4)]).to(dev)
     valid = torch.ones(4, k, dtype=torch.bool, device=dev)
     valid[1, k // 3] = False
-    before, staged = of.launches_by_ck.get((4, k), 0), of.staged
+    before, staged = lc.get(f"lk_flow/C=4,K={k}"), lc.get("lk_flow/staged")
     g, s = of.lk_flow_clips(prev, curr, pts, valid)
     torch.cuda.synchronize()
-    assert of.launches_by_ck[(4, k)] == before + 1
+    assert lc.get(f"lk_flow/C=4,K={k}") == before + 1
     for c in range(4):
         g1, s1 = of.lk_flow(prev[c], curr[c], pts[c], valid[c])
         assert torch.equal(g[c], g1) and torch.equal(s[c], s1), f"clip {c}"
@@ -331,7 +333,7 @@ def test_batched_launch_equals_single_launches_and_plain(dev, hw, k):
         np.testing.assert_array_equal(s[c].cpu().numpy(), sp)
         assert sp.sum() >= (k - 1) // 2
         np.testing.assert_allclose(g[c].cpu().numpy()[sp], gp.cpu().numpy()[sp], atol=1e-2)
-    assert of.staged == staged
+    assert lc.get("lk_flow/staged") == staged
 
 
 def test_batched_launch_of_one_clip_equals_the_single_launch(dev):
@@ -352,7 +354,7 @@ def test_batched_launch_checks_the_clip_stride(dev):
     valid = torch.ones(2, 8, dtype=torch.bool, device=dev)
     flat = torch.zeros(2 * h * pitch + 64, dtype=torch.uint8, device=dev)
     odd = torch.as_strided(flat, (2, h, w, 3), (h * pitch + 8, pitch, 3, 1))
-    before = of.launches
+    before = lc.get("lk_flow")
     with pytest.raises(ValueError, match="clip stride"):
         of.lk_flow_clips(odd, odd, pts, valid)
     longer = _clip_buffer(dev, (h, w), 2, 3)  # clips of 3 frames: another clip stride
@@ -360,7 +362,7 @@ def test_batched_launch_checks_the_clip_stride(dev):
         of.lk_flow_clips(clips[:, 0], longer[:, 1], pts, valid)
     with pytest.raises(ValueError, match="CUDA"):  # lk_flow_clips would take the plain version for CPU points
         of.lk_flow_clips_cuda(clips[:, 0], clips[:, 1], pts.cpu(), valid.cpu())
-    assert of.launches == before
+    assert lc.get("lk_flow") == before
 
 
 def test_one_shot_peak_grows_by_the_canvases_only(dev):
@@ -401,11 +403,11 @@ def _lap_against_plain(dev, n, kind, seed):
     bit-equal to the plain version; returns (path, columns a lane)."""
     cost = torch.from_numpy(lap_costs(n, kind, seed))
     path, cols = lap.kernel_path(n, dev), lap.kernel_columns(n, dev)
-    before, by_path = lap.launches, dict(lap.launches_by_path)
+    before, on_path = lc.get("lap_jv"), lc.get(f"lap_jv/{path}")
     got = lap.solve_lap(cost.to(dev))
     torch.cuda.synchronize()
     launched = 1 if n else 0
-    assert lap.launches == before + launched and lap.launches_by_path[path] == by_path[path] + launched
+    assert lc.get("lap_jv") == before + launched and lc.get(f"lap_jv/{path}") == on_path + launched
     assert got.dtype == torch.int32 and got.device.type == "cuda" and got.shape == (n,)
     np.testing.assert_array_equal(got.cpu().numpy(), lap.solve_lap_plain(cost).numpy())
     return path, cols
@@ -475,11 +477,11 @@ def test_lap_kernel_with_the_column_vectors_in_shared_memory(dev, n):
 def test_lap_batched_launch_equals_single_launches(dev, n):
     costs = torch.from_numpy(np.stack([lap_costs(n, kind, seed=s) for s, kind in
                                        enumerate(["random", "tracking", "tracking", "random"])])).to(dev)
-    before = lap.launches
+    before = lc.get("lap_jv")
     batched = lap.solve_lap(costs)
     singles = [lap.solve_lap(costs[b]) for b in range(4)]
     torch.cuda.synchronize()
-    assert lap.launches == before + 5
+    assert lc.get("lap_jv") == before + 5
     for b in range(4):
         assert torch.equal(batched[b], singles[b])
     np.testing.assert_array_equal(batched.cpu().numpy(), lap.solve_lap_plain(costs.cpu()).numpy())
@@ -493,14 +495,14 @@ def test_lap_kernel_gives_minus_one_rows_on_an_all_inf_matrix(dev, n):
 
 
 def test_lap_kernel_checks_its_inputs(dev):
-    before = lap.launches
+    before = lc.get("lap_jv")
     with pytest.raises(ValueError, match="CUDA"):
         lap.solve_lap_cuda(torch.zeros(4, 4))
     for bad in (torch.zeros(4, 4, dtype=torch.float64, device=dev), torch.zeros(4, 5, device=dev),
                 torch.zeros(8, 8, device=dev)[::2, ::2], torch.zeros(2, 2, 4, 4, device=dev)):
         with pytest.raises(ValueError, match="solve_lap takes"):
             lap.solve_lap(bad)
-    assert lap.launches == before
+    assert lc.get("lap_jv") == before
     # a matrix with no finite perfect matching: every row -1, no hang
     out = lap.solve_lap(torch.full((5, 5), float("inf"), device=dev))
     torch.cuda.synchronize()
@@ -516,13 +518,13 @@ def test_masked_assignment_on_the_card_makes_no_host_sync(dev):
     args = [torch.from_numpy(a).to(dev) for a in (cost, rows, cols)]
     lap.masked_assignment(*args, 0.8)  # builds and loads the kernel
     torch.cuda.synchronize()
-    before = lap.launches
+    before = lc.get("lap_jv")
     torch.cuda.set_sync_debug_mode("error")
     try:
         match, matched_col = lap.masked_assignment(*args, 0.8)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert lap.launches == before + 1
+    assert lc.get("lap_jv") == before + 1
     want_m, want_c = lap.masked_assignment(*(a.cpu() for a in args), 0.8)
     assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
     assert (want_m >= 0).sum() >= 5
@@ -541,10 +543,10 @@ def _auction_inputs(kind, r, c, seed):
 
 
 def _auction_against_plain(dev, benefit, row_ok, c, iterations=512):
-    before = lap.auction_launches
+    before = lc.get("auction")
     got_m, got_r = lap.auction_rounds(benefit.to(dev), row_ok.to(dev), c, iterations)
     torch.cuda.synchronize()
-    assert lap.auction_launches == before + 1
+    assert lc.get("auction") == before + 1
     want_m, want_r = lap.auction_rounds_plain(benefit, row_ok, c, iterations)
     assert got_m.dtype == torch.int64 and got_r.dtype == torch.int32 and got_m.device.type == "cuda"
     assert torch.equal(got_m.cpu(), want_m) and torch.equal(got_r.cpu(), want_r)
@@ -568,9 +570,9 @@ def test_auction_kernel_matches_plain(dev, kind, r, c):
     assert (r, c) not in ONCHIP_SHAPES.values() or ONCHIP_SHAPES[inst] == (r, c)
     assert lap.auction_path(r, c + r, dev) == "registers"
     benefit, row_ok = _auction_inputs(kind, r, c, seed=r + c)
-    before = lap.auction_launches_by_path["registers"]
+    before = lc.get("auction/registers")
     _auction_against_plain(dev, benefit, row_ok, c)
-    assert lap.auction_launches_by_path["registers"] == before + 1
+    assert lc.get("auction/registers") == before + 1
 
 
 @pytest.mark.parametrize("iterations", [0, 1, 2, 3, 40])
@@ -595,21 +597,21 @@ def test_auction_kernel_runs_each_round_case(dev, rounds):
 def test_auction_kernel_reads_a_large_matrix_from_global_memory(dev):
     r, c = 200, 300  # more rows (and columns) than a block keeps in registers
     assert lap.auction_path(r, c + r, dev) == "global"
-    before = lap.auction_launches_by_path["global"]
+    before = lc.get("auction/global")
     benefit, row_ok = _auction_inputs("tracking", r, c, seed=1)
     _auction_against_plain(dev, benefit, row_ok, c)
-    assert lap.auction_launches_by_path["global"] == before + 1
+    assert lc.get("auction/global") == before + 1
 
 
 def test_auction_batched_launch_equals_single_launches(dev):
     cases = [_auction_inputs(kind, 64, 128, seed=s) for s, kind in enumerate(["tracking", "ties", "random", "tracking"])]
     benefit = torch.stack([b for b, _ in cases]).to(dev)
     row_ok = torch.stack([o for _, o in cases]).to(dev)
-    before = lap.auction_launches
+    before = lc.get("auction")
     match, done = lap.auction_rounds(benefit, row_ok, 128)
     singles = [lap.auction_rounds(benefit[b], row_ok[b], 128) for b in range(4)]
     torch.cuda.synchronize()
-    assert lap.auction_launches == before + 5 and match.shape == (4, 64) and done.shape == (4,)
+    assert lc.get("auction") == before + 5 and match.shape == (4, 64) and done.shape == (4,)
     for b in range(4):
         assert torch.equal(match[b], singles[b][0]) and int(done[b]) == int(singles[b][1])
     want_m, want_r = lap.auction_rounds_plain(benefit.cpu(), row_ok.cpu(), 128)
@@ -626,13 +628,13 @@ def test_auction_kernel_adds_its_rounds_to_the_device_tally(dev):
 
 
 def test_auction_kernel_checks_its_inputs(dev):
-    before = lap.auction_launches
+    before = lc.get("auction")
     b, ok = torch.zeros(4, 7, device=dev), torch.ones(4, dtype=torch.bool, device=dev)
     for args in ((b.double(), ok, 3), (b, ok.int(), 3), (b, ok, 4), (b.t().contiguous().t(), ok, 3),
                  (b, ok.cpu(), 3)):
         with pytest.raises(ValueError, match="auction_rounds takes"):
             lap.auction_rounds(*args)
-    assert lap.auction_launches == before
+    assert lc.get("auction") == before
 
 
 def test_masked_auction_on_the_card_makes_no_host_sync(dev):
@@ -640,23 +642,23 @@ def test_masked_auction_on_the_card_makes_no_host_sync(dev):
     args = [torch.from_numpy(a).to(dev) for a in (cost, rows, cols)]
     lap.masked_auction(*args, gate)  # builds and loads the kernel
     torch.cuda.synchronize()
-    before = lap.auction_launches
+    before = lc.get("auction")
     torch.cuda.set_sync_debug_mode("error")
     try:
         match, matched_col = lap.masked_auction(*args, gate)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert lap.auction_launches == before + 1
+    assert lc.get("auction") == before + 1
     want_m, want_c = lap.masked_auction(*(a.cpu() for a in args), gate)
     assert torch.equal(match.cpu(), want_m) and torch.equal(matched_col.cpu(), want_c)
     assert (want_m >= 0).sum() >= 10
 
 
 def _suppress_against_plain(dev, shifted, valid, thr=0.7):
-    before = nms.launches
+    before = lc.get("nms")
     got = nms.suppress(shifted.to(dev), valid.to(dev), thr)
     torch.cuda.synchronize()
-    assert nms.launches == before + 1 and got.dtype == torch.bool and got.device.type == "cuda"
+    assert lc.get("nms") == before + 1 and got.dtype == torch.bool and got.device.type == "cuda"
     want = nms.suppress_plain(shifted, valid, thr)
     assert torch.equal(got.cpu(), want)
     return want
@@ -692,22 +694,22 @@ def test_nms_kernel_past_1024_candidates(dev, k, b):
     dense (k, k) block fits on the card)."""
     shifted, valid = suppress_inputs(*nms_wide_case(k, b=b, seed=k), k, device=dev)
     assert shifted.shape == (b, k, 4) and int(valid.sum()) > 600 * b
-    before = nms.launches
+    before = lc.get("nms")
     got = nms.suppress(shifted, valid, 0.7)
     want = nms.suppress_plain(shifted, valid, 0.7)
-    assert nms.launches == before + 1 and torch.equal(got, want)
+    assert lc.get("nms") == before + 1 and torch.equal(got, want)
     assert 0 < int(want.sum()) < int(valid.sum())
 
 
 def test_nms_kernel_checks_its_inputs(dev):
-    before = nms.launches
+    before = lc.get("nms")
     s, v = torch.zeros(2, 8, 4, device=dev), torch.ones(2, 8, dtype=torch.bool, device=dev)
     for args in ((s.double(), v), (s, v.int()), (s[..., :3].contiguous(), v), (s, v.cpu())):
         with pytest.raises(ValueError, match="suppress takes"):
             nms.suppress(*args, 0.7)
     assert nms.suppress(torch.zeros(0, 8, 4, device=dev), torch.zeros(0, 8, dtype=torch.bool, device=dev),
                         0.7).shape == (0, 8)
-    assert nms.launches == before
+    assert lc.get("nms") == before
     # any k runs on the card: 1025 candidates, past 32 words of overlap bits a candidate
     boxes, scores = nms_cases(3, na=1100)
     shifted, valid = suppress_inputs(boxes, scores, 1025)
@@ -719,13 +721,13 @@ def test_batched_nms_on_the_card_makes_no_host_sync(dev):
     x = boxes.to(dev), scores.to(dev)
     nms.batched_nms(*x)  # builds and loads the kernel
     torch.cuda.synchronize()
-    before = nms.launches
+    before = lc.get("nms")
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = nms.batched_nms(*x)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert nms.launches == before + 1
+    assert lc.get("nms") == before + 1
     for g, w in zip(got, nms.batched_nms(boxes, scores)):
         assert torch.equal(g.cpu(), w)
 
@@ -761,12 +763,12 @@ def test_a_world_of_one_under_nccl_equals_the_single_device_runner(dev, tmp_path
         mesh = make_mesh()
         assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", torch.cuda.current_device()))
         model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
-        launches = of.launches
+        launches = lc.get("lk_flow")
         got = MultiClipRunner(model, mesh=mesh).run(clips, 8, num_keypoint_detection=2)
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
-    assert got == want and of.launches > launches
+    assert got == want and lc.get("lk_flow") > launches
     assert sum(len(fr["Keypoints"]) for r in got for fr in r.values()) > 4 * len(frames)
 
 
@@ -846,9 +848,9 @@ def test_default_detector_fn_is_one_nms_launch(dev, eval_scene):
     model = CoordinateModel(device="cuda")
     frames = eval_scene.frames
     model._default_detector_fn(frames[:2])  # warm-up
-    nms.launches = 0
+    lc.reset("nms")
     boxes, conf, cls, valid = model._default_detector_fn(frames)
-    assert nms.launches == 1
+    assert lc.get("nms") == 1
     rows = model.run_detector(of.upload_frames(frames, dev), WorkGeometry(), (720, 1280)).cpu().numpy()
     np.testing.assert_array_equal(boxes, rows[..., :4])
     np.testing.assert_array_equal(conf, rows[..., 4])
@@ -948,9 +950,9 @@ def test_cli_from_an_mp4_on_the_card_writes_the_cpu_run_files(dev, tmp_path, mon
     for where, flags in (("card", []), ("cpu", ["--device", "cpu"])):
         (tmp_path / where).mkdir()
         monkeypatch.chdir(tmp_path / where)
-        before = of.launches
+        before = lc.get("lk_flow")
         tmain.main(["--video_path", mp4, "--fps", "8", *flags])
-        assert (of.launches > before) == (where == "card")
+        assert (lc.get("lk_flow") > before) == (where == "card")
         out = tmp_path / where / "output" / "clip"
         assert sorted(p.name for p in out.iterdir()) == sorted(
             ["metadata.json", "processed_data.json", "raw_coordinates.json", "raw_data.json", "annotated.mp4"])
@@ -960,3 +962,151 @@ def test_cli_from_an_mp4_on_the_card_writes_the_cpu_run_files(dev, tmp_path, mon
     for name, want in files["cpu"].items():
         assert want, name
         assert json_mismatch(files["card"][name], want, 1.0) is None, name
+
+
+# ---------------------------------------------------------------------------
+# the temporal scan as captured chunks: the RANSAC keys kernel, the DLT's
+# eigen solve, the step graph
+# ---------------------------------------------------------------------------
+
+
+def test_threefry_kernel_equals_plain(dev):
+    from eagle_tpu_torch.ops import prng
+
+    for seed, step in [(0, 0), (0, 1), (7, 10**6), (2**31 + 3, 2**33 + 5)]:
+        t_ = torch.tensor(step, device=dev)
+        before = lc.get("ransac_keys")
+        got = prng.ransac_keys(seed, t_, 512, 57)
+        torch.cuda.synchronize()
+        assert lc.get("ransac_keys") == before + 1 and got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), prng.ransac_keys_plain(seed, t_.cpu(), 512, 57))
+    with pytest.raises(ValueError):
+        prng.ransac_keys_cuda(0, torch.tensor(1, dtype=torch.int32, device=dev), 4, 4)
+
+
+def _dlt_normal_matrices(b: int, seed: int = 0) -> torch.Tensor:
+    """The normal matrices (B, 9, 9) of the DLT on random 4-point
+    hypotheses of a broadcast-like homography, as ``dlt_homography`` makes
+    them."""
+    rng = np.random.default_rng(seed)
+    world = rng.uniform([0, 0], [105, 68], (b, 4, 2)).astype(np.float32)
+    H = np.array([[9.0, 1.5, 120.0], [0.2, -6.0, 600.0], [0.0005, 0.004, 1.0]])
+    img = world @ H[:2, :2].T + H[:2, 2]
+    img = (img / (world @ H[2, :2] + 1.0)[..., None] + rng.normal(0, 0.7, img.shape)).astype(np.float32)
+    captured = []
+    from eagle_tpu_torch.ops import homography as hom
+
+    real = hom.smallest_eigenvector
+    hom.smallest_eigenvector = lambda a: captured.append(a.clone()) or real(a)
+    try:
+        hom.dlt_homography(torch.from_numpy(img), torch.from_numpy(world), torch.ones(b, 4))
+    finally:
+        hom.smallest_eigenvector = real
+    return captured[0]
+
+
+def test_eigh9_kernel_against_plain(dev):
+    """The kernel's eigenvector of the smallest eigenvalue against
+    ``torch.linalg.eigh`` in float64 on the same float32 matrices, up to
+    sign, within 1e-4 where the two smallest eigenvalues lie apart (1e-6 of
+    the largest), and with a residual ``|A v - lambda v|`` within 1e-4 of
+    ``|A|`` on every matrix; against the plain version (``torch.linalg.eigh``
+    in float32 on the card) within 1e-3 where they lie 1e-3 apart: B = 512
+    random normal matrices, 512 DLT hypotheses' and B = 1."""
+    from eagle_tpu_torch.ops import eigh
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(512, 8, 9, generator=g)
+    for a in (x.transpose(1, 2) @ x, _dlt_normal_matrices(512), _dlt_normal_matrices(1, seed=3)[0]):
+        before = lc.get("eigh9")
+        got = eigh.smallest_eigenvector(a.to(dev))
+        torch.cuda.synchronize()
+        assert lc.get("eigh9") == before + 1 and got.shape == a.shape[:-1]
+        got = got.cpu().double().reshape(-1, 9)
+        a64 = a.double().reshape(-1, 9, 9)
+        lam, vec = torch.linalg.eigh(a64)
+        want = vec[..., :, 0]
+        err = torch.minimum((got - want).abs().amax(-1), (got + want).abs().amax(-1))
+        apart = (lam[:, 1] - lam[:, 0]) > 1e-6 * lam[:, -1].abs()
+        assert apart.float().mean() > 0.9
+        assert err[apart].max() <= 1e-4
+        resid = (a64 @ got[..., None])[..., 0] - lam[:, :1] * got
+        assert (resid.norm(dim=-1) <= 1e-4 * a64.flatten(1).norm(dim=-1)).all()
+        plain = eigh.smallest_eigenvector_plain(a.reshape(-1, 9, 9).to(dev)).cpu().double()
+        err32 = torch.minimum((got - plain).abs().amax(-1), (got + plain).abs().amax(-1))
+        wide = (lam[:, 1] - lam[:, 0]) > 1e-3 * lam[:, -1].abs()
+        assert err32[wide].max() <= 1e-3  # cuSOLVER's float32 rounding: ~6e-8 / 1e-3
+    with pytest.raises(ValueError):
+        eigh.smallest_eigenvector_cuda(torch.zeros(2, 8, 8, device=dev))
+
+
+def _scene_model(path: str, n: int = 40, chunk: int = 16, **cfg_kw):
+    """A model on the port's synthetic scene (640x360, 8 players, a panning
+    camera) with runners of its truth, ``chunk``-frame chunks, the temporal
+    path forced to ``path`` ("chunks" or "frames")."""
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+    from eagle_tpu_torch.utils.synthetic import make_scene
+
+    scene = make_scene(num_frames=n, width=640, height=360, num_players=8, fps=8, seed=3, pan_speed=1.0)
+    keypoints, detections = _scene_runners(scene, scene.frames)
+    cfg = DEFAULT_CONFIG.replace(chunk_frames=chunk, **cfg_kw)
+    model = CoordinateModel(config=cfg, keypoint_fn=keypoints, detector_fn=detections, device="cuda")
+    model._temporal_path = path
+    return model, scene.frames
+
+
+@pytest.mark.parametrize("appearance", [False, True])
+def test_graph_equals_eager_on_the_card(dev, appearance):
+    """40 frames in 16-frame chunks, a homography every 4 frames, without
+    and with the tracker's appearance association (the histogram
+    embedder): the captured chunks' dict equals the eager loop's on the
+    card; a replay counts one flow, three auction, one keys and two eigen
+    launches."""
+    import dataclasses
+
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+
+    tracker = dataclasses.replace(DEFAULT_CONFIG.tracker, use_appearance=True, embedder="histogram", embed_dim=64)
+    runs = {}
+    for path in ("frames", "chunks"):
+        model, frames = _scene_model(path, **(dict(tracker=tracker) if appearance else {}))
+        counts = (lc.get("lk_flow"), lc.get("auction"), lc.get("ransac_keys"), lc.get("eigh9"))
+        runs[path] = model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
+        torch.cuda.synchronize()
+        runs[path + "_launches"] = [lc.get(k) - c for k, c in zip(("lk_flow", "auction", "ransac_keys", "eigh9"), counts)]
+        if path == "chunks":
+            sg = next(iter(model._step_graphs.values()))
+            assert sg.graph is not None and sg.capture_s is not None
+    assert runs["chunks"] == runs["frames"]
+    assert runs["chunks_launches"] == [40, 120, 40, 80]
+    assert sum(len(fr["Coordinates"].get("Player", {})) for fr in runs["chunks"].values()) > 4 * 40
+    assert sum(fr["Boundaries"][0] is not None for fr in runs["chunks"].values()) > 30
+
+
+def test_step_graph_makes_no_host_sync(dev):
+    """A chunk's replays under ``torch.cuda.set_sync_debug_mode("error")``:
+    no synchronising call (the first run captured the graph), and a second
+    pass over the same chunk gives the same outputs."""
+    from eagle_tpu_torch.pipeline import temporal
+
+    model, frames = _scene_model("chunks", n=16)
+    model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
+    sg = next(iter(model._step_graphs.values()))
+    x = torch.from_numpy(frames).to(dev)
+    rows = [torch.from_numpy(model._custom_detections(frames[i : i + 8])).to(dev) for i in (0, 8)]
+    det = torch.cat(rows)
+    kp = torch.from_numpy(model._custom_keypoints(frames[:1])).to(dev).expand(16, 57, 4)
+    t_ = torch.arange(16, device=dev)
+    carry = temporal.init_carry(model.config.replace(work=model._geometry(frames.shape[1:3])), dev)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, out = sg.run_chunk(carry, lambda i: (x[max(i - 1, 0)], x[i]), kp[..., :3], kp[..., 3] > 0.5, det, t_,
+                                  t_ % 4 == 0, t_ % 2 == 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])

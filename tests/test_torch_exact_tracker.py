@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from eagle_tpu_torch.config import TrackerConfig
-from eagle_tpu_torch.ops import assignment
+from eagle_tpu_torch.ops import launch_counts
 from eagle_tpu_torch.track import botsort
 
 from .test_tracker_parity import D_SLOTS, T_SLOTS, _assert_streams_equal, _make_stream, _run_oracle
@@ -60,9 +60,9 @@ def _run_port(stream, cfg, warps=None, embs=None):
 def test_exact_tracker_matches_boxmot(seed):
     stream = _make_stream(seed=seed)
     cfg = TrackerConfig(max_tracks=T_SLOTS, assignment="exact", gmc="off")
-    launches = assignment.launches
+    launches = launch_counts.get("lap_jv")
     _assert_streams_equal(_run_port(stream, cfg), _run_oracle(stream))
-    assert assignment.launches == launches  # CPU tensors: the plain version, no kernel
+    assert launch_counts.get("lap_jv") == launches  # CPU tensors: the plain version, no kernel
 
 
 def test_exact_tracker_matches_boxmot_under_gmc_warp():

@@ -18,6 +18,7 @@ from eagle_tpu.ops.optical_flow import pyr_down as jpyr
 from eagle_tpu.ops.pallas_flow2 import lk_flow_pallas2
 from eagle_tpu.utils.synthetic import make_scene
 from eagle_tpu_torch.config import FlowConfig, PipelineConfig
+from eagle_tpu_torch.ops import launch_counts
 from eagle_tpu_torch.ops import optical_flow as of
 from eagle_tpu_torch.pipeline.temporal import flow_with_filters
 
@@ -97,10 +98,10 @@ def test_roi_pyramid_layout(case):
 
 def test_cpu_tensors_take_the_plain_version(case):
     prev, curr, pts, valid = case
-    before = of.launches
+    before = launch_counts.get("lk_flow")
     a = of.lk_flow(t(prev), t(curr), t(pts), t(valid))
     b = of.lk_flow_plain(t(prev), t(curr), t(pts), t(valid))
-    assert of.launches == before
+    assert launch_counts.get("lk_flow") == before
     np.testing.assert_array_equal(n(a[0]), n(b[0]))
 
 

@@ -40,7 +40,7 @@ def test_random_stream_bit_equal(seed, step):
         prng.uniform(mine, shape, tiny, 1.0), np.asarray(jax.random.uniform(key, shape, minval=tiny, maxval=1.0))
     )
     want = np.asarray(jax.random.gumbel(key, shape))
-    got = th.ransac_gumbel(seed, step, *shape)
+    got = prng.gumbel(mine, shape)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
@@ -49,7 +49,7 @@ def test_minimal_sets_bit_equal(seed, step):
     valid = np.random.default_rng(step).uniform(size=57) < 0.6
     key = jax.random.fold_in(jax.random.key(seed), step)
     want = np.asarray(jh._sample_minimal_sets(key, jnp.asarray(valid), 512))
-    got = n(th.sample_minimal_sets(t(th.ransac_gumbel(seed, step, 512, 57)), t(valid)))
+    got = n(th.sample_minimal_sets(prng.ransac_keys(seed, torch.tensor(step), 512, 57), t(valid)))
     np.testing.assert_array_equal(got, want)
 
 
@@ -73,7 +73,7 @@ def test_ransac_matches_jax_on_same_sets(seed, outliers, n_valid):
     src, dst, valid = _correspondences(np.random.default_rng(seed), outliers, n_valid)
     key = jax.random.fold_in(jax.random.key(0), seed)
     Hj, inl_j, ok_j = (np.asarray(a) for a in jh.ransac_homography(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), key))
-    sets = th.sample_minimal_sets(t(th.ransac_gumbel(0, seed, 512, 57)), t(valid))
+    sets = th.sample_minimal_sets(prng.ransac_keys(0, torch.tensor(seed), 512, 57), t(valid))
     Ht, inl_t, ok_t = (n(a) for a in th.ransac_homography(t(src), t(dst), t(valid), sets))
     assert bool(ok_t) == bool(ok_j)
     np.testing.assert_array_equal(inl_t, inl_j)

@@ -27,7 +27,6 @@ from eagle_tpu_torch.config import DEFAULT_CONFIG as TCFG
 from eagle_tpu_torch.config import WorkGeometry
 from eagle_tpu_torch.ops import color as tcolor
 from eagle_tpu_torch.ops import geometry as tgeo
-from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.pipeline import temporal as tt
 
 from .oracles import oracle_detections_at, oracle_keypoint_fn
@@ -129,7 +128,7 @@ def test_temporal_steps_match_jax(scene):
     jstep = jax.jit(jt.temporal_step, static_argnames=("cfg",))
     jc = jt.init_carry(JCFG)
     tc = tt.init_carry(TCFG, "cpu")
-    gum = lambda step: t(ransac_gumbel(0, step, TCFG.homography.ransac_iters, 57))
+    gum = tt.ransac_draws(0, TCFG, "cpu")
     for f in range(len(scene.frames)):
         is_kp = f % 3 == 0
         kp, valid = _kp(scene, f)

@@ -31,7 +31,6 @@ from eagle_tpu.pipeline import temporal as jt
 from eagle_tpu.utils.synthetic import make_scene
 from eagle_tpu_torch.config import DEFAULT_CONFIG as TCFG
 from eagle_tpu_torch.ops import optical_flow as of
-from eagle_tpu_torch.ops.homography import ransac_gumbel
 from eagle_tpu_torch.pipeline import temporal as tt
 
 from .oracles import oracle_detections_at, oracle_keypoint_fn
@@ -77,7 +76,7 @@ def test_temporal_step_clips_matches_jax(scenes, gmc):
     jc = jax.vmap(lambda _: jt.init_carry(jcfg))(jnp.arange(C))
     tc = tt.stack_clips([tt.init_carry(tcfg, "cpu") for _ in range(C)])
     singles = [tt.init_carry(tcfg, "cpu") for _ in range(C)]
-    gum = lambda step: t(ransac_gumbel(0, step, tcfg.homography.ransac_iters, 57))
+    gum = tt.ransac_draws(0, tcfg, "cpu")
     solved = 0
     for f in range(STEPS):
         rows = _inputs(scenes, f)

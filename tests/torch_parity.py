@@ -61,6 +61,35 @@ def n(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def gumbel_top4(draw: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """The top 4 points of a float Gumbel draw (iters, N) over the (N,)
+    valid mask, invalid points scoring -inf and equal scores ordered by
+    lower index (as ``jax.lax.top_k``): the minimal sets the draw picks."""
+    scores = np.where(valid[None, :], draw, -np.inf)
+    return np.argsort(-scores, axis=-1, kind="stable")[:, :4]
+
+
+def tie_masks(rng: np.random.Generator) -> list[np.ndarray]:
+    """Random masks of the 57 points, and masks whose invalid points' scores
+    tie: none, one, three valid points."""
+    few = [np.zeros(57, bool) for _ in range(3)]
+    few[1][rng.integers(57)] = True
+    few[2][rng.choice(57, 3, replace=False)] = True
+    return [rng.uniform(size=57) < 0.6, rng.uniform(size=57) < 0.1, *few]
+
+
+def chunk_model(path: str, cls=None, **kw):
+    """A port ``CoordinateModel`` on the CPU in 4-frame chunks whose temporal
+    stage runs ``path``: "chunks" (the step graph's slots, stepped eagerly)
+    or "frames" (the eager loop)."""
+    if cls is None:
+        from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel as cls
+    m = cls(device="cpu", **kw)
+    m.config = m.config.replace(chunk_frames=4)
+    m._temporal_path = path
+    return m
+
+
 def osnet_params(seed: int, feature_dim: int = 512, variant: str = "x0_25"):
     """A JAX OSNet parameter pytree drawn with numpy (the shapes of
     ``eagle_tpu.models.osnet.init_params``, no eager JAX work): kernels
