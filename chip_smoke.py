@@ -3453,38 +3453,39 @@ def md_rank(rank: int, size: int, work: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{work}/gloo_store", rank=rank, world_size=size,
                             timeout=datetime.timedelta(seconds=600))
-    try:
-        mesh = make_mesh()
-        model = CoordinateModel(config=DEFAULT_CONFIG, seed=SEED, device=mesh.device)
-        weights = torch.load(f"{work}/weights.pt", map_location=mesh.device)
-        model.keypoint_model.load_state_dict(weights["keypoint"])
-        model.detector_model.load_state_dict(weights["detector"])
-        frames96, _ = make_frames(96)
-        starts = np.cumsum([0] + MD_CLIPS_B[:-1])
-        clips = [frames96[a : a + n] for a, n in zip(starts, MD_CLIPS_B)]
-        model.get_coordinates(frames96[:16], FPS, num_keypoint_detection=3)  # warm-up, as the slice's
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dist.barrier()
-        lc.reset()
-        t0 = time.perf_counter()
-        res = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = lc.get("lk_flow")
-        frames, pts = make_frames(N_FRAMES)
-        xs = md_scan_inputs(frames, pts, mesh.device)
-        halo = gather_batch(halo_exchange_prev(shard_batch(xs.frame_bgr, mesh), mesh), mesh)
-        local = temporal.FrameInputs(*(None if v is None else shard_batch(v, mesh) for v in xs))
-        local = local._replace(prev_frame_bgr=halo_exchange_prev(local.frame_bgr, mesh))
-        lc.reset()
-        ts = [gather_batch(a, mesh).cpu() for a in timesharded_keypoint_scan(mesh, model.config, SEED, local)]
-        torch.save({"res": res, "wall": wall, "launches": launches, "scan_launches": lc.get("lk_flow"),
-                    "halo": bool(torch.equal(halo[1:], xs.frame_bgr[:-1]) and torch.equal(halo[0], xs.frame_bgr[0])),
-                    "ts": ts, "peak": torch.cuda.max_memory_allocated(), "device": str(mesh.device)},
-                   f"{work}/rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+    with lc.counting():  # a spawned rank reads its captured steps' launch counts
+        try:
+            mesh = make_mesh()
+            model = CoordinateModel(config=DEFAULT_CONFIG, seed=SEED, device=mesh.device)
+            weights = torch.load(f"{work}/weights.pt", map_location=mesh.device)
+            model.keypoint_model.load_state_dict(weights["keypoint"])
+            model.detector_model.load_state_dict(weights["detector"])
+            frames96, _ = make_frames(96)
+            starts = np.cumsum([0] + MD_CLIPS_B[:-1])
+            clips = [frames96[a : a + n] for a, n in zip(starts, MD_CLIPS_B)]
+            model.get_coordinates(frames96[:16], FPS, num_keypoint_detection=3)  # warm-up, as the slice's
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            lc.reset()
+            t0 = time.perf_counter()
+            res = MultiClipRunner(model, mesh=mesh).run(clips, FPS, num_keypoint_detection=3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = lc.get("lk_flow")
+            frames, pts = make_frames(N_FRAMES)
+            xs = md_scan_inputs(frames, pts, mesh.device)
+            halo = gather_batch(halo_exchange_prev(shard_batch(xs.frame_bgr, mesh), mesh), mesh)
+            local = temporal.FrameInputs(*(None if v is None else shard_batch(v, mesh) for v in xs))
+            local = local._replace(prev_frame_bgr=halo_exchange_prev(local.frame_bgr, mesh))
+            lc.reset()
+            ts = [gather_batch(a, mesh).cpu() for a in timesharded_keypoint_scan(mesh, model.config, SEED, local)]
+            torch.save({"res": res, "wall": wall, "launches": launches, "scan_launches": lc.get("lk_flow"),
+                        "halo": bool(torch.equal(halo[1:], xs.frame_bgr[:-1]) and torch.equal(halo[0], xs.frame_bgr[0])),
+                        "ts": ts, "peak": torch.cuda.max_memory_allocated(), "device": str(mesh.device)},
+                       f"{work}/rank{rank}.pt")
+        finally:
+            dist.destroy_process_group()
 
 
 def multidevice_gloo(model, frames96, seq, work: str) -> list[int]:
@@ -3886,31 +3887,33 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     card = card_line()
 
-    t0 = time.perf_counter()
-    build_log = phase_build()
-    frames, pts = make_frames(N_FRAMES)
-    flow = phase_kernel(frames, pts)
-    phase_reference(frames, pts)
-    flow["launches"], model, slice_res, slice_loops, slice_traced = phase_slice(frames)
-    auction_entry, nms_entry = phase_loops(model, frames)
-    auction_entry["launches"], nms_entry["launches"] = slice_loops["auction"], slice_loops["nms"]
-    keys_entry, eigh_entry = phase_graph(frames, pts, model, slice_traced)
-    keys_entry["launches"], eigh_entry["launches"] = slice_loops["keys"], slice_loops["eigh9"]
-    auction_entry["rounds"] = slice_loops["rounds"]
-    tracker_fields, tracker = phase_tracker(frames, pts, model)
-    flow.update(tracker_fields)
-    lap_entry = phase_exact(frames, pts, model, slice_res, build_log)
-    phase_process(frames, pts)
-    phase_cli(frames, pts, model)
-    flow.update(phase_stream(frames, pts, model, slice_res))
-    clips_entry = phase_multiclip(frames, pts, model)
-    flow.update(phase_multidevice(model, frames, pts))
-    phase_prescale(model, frames)
-    phase_eval(model)
-    phase_bench()
-    if args.profile:
-        phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
-        phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
+    # every phase reads the captured steps' launch counts
+    with lc.counting():
+        t0 = time.perf_counter()
+        build_log = phase_build()
+        frames, pts = make_frames(N_FRAMES)
+        flow = phase_kernel(frames, pts)
+        phase_reference(frames, pts)
+        flow["launches"], model, slice_res, slice_loops, slice_traced = phase_slice(frames)
+        auction_entry, nms_entry = phase_loops(model, frames)
+        auction_entry["launches"], nms_entry["launches"] = slice_loops["auction"], slice_loops["nms"]
+        keys_entry, eigh_entry = phase_graph(frames, pts, model, slice_traced)
+        keys_entry["launches"], eigh_entry["launches"] = slice_loops["keys"], slice_loops["eigh9"]
+        auction_entry["rounds"] = slice_loops["rounds"]
+        tracker_fields, tracker = phase_tracker(frames, pts, model)
+        flow.update(tracker_fields)
+        lap_entry = phase_exact(frames, pts, model, slice_res, build_log)
+        phase_process(frames, pts)
+        phase_cli(frames, pts, model)
+        flow.update(phase_stream(frames, pts, model, slice_res))
+        clips_entry = phase_multiclip(frames, pts, model)
+        flow.update(phase_multidevice(model, frames, pts))
+        phase_prescale(model, frames)
+        phase_eval(model)
+        phase_bench()
+        if args.profile:
+            phase_profile(model, frames[:PROFILE_FRAMES], args.profile)
+            phase_profile(tracker, frames[:PROFILE_FRAMES], os.path.splitext(args.profile)[0] + "_tracker.json")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(decoder_probe())
     print(json.dumps({"kernels": [flow, clips_entry, lap_entry, auction_entry, nms_entry, keys_entry, eigh_entry]}))

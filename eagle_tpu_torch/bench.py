@@ -230,6 +230,7 @@ def pitch_error_m(coords: dict, scene) -> float | None:
     return float(np.median(d)) if d else None
 
 
+@counts.counting()
 def run(model: CoordinateModel, scene, *, reps: int = 5, budget_s: float = 900.0, emit=None) -> dict:
     """The bench on ``model`` (built-in models; wrapped here by
     :class:`OracleInjection`) and ``scene`` (an even number of frames):
@@ -237,7 +238,9 @@ def run(model: CoordinateModel, scene, *, reps: int = 5, budget_s: float = 900.0
     in turns (fewer when ``budget_s`` seconds run short), then one untimed
     run under a synchronising :class:`StageTimer` and, on the card, one
     traced run.  ``emit(headline)`` is called with the headline dict at the
-    start and after every step that changes it; returns the last one."""
+    start and after every step that changes it; returns the last one.  It
+    runs in the launch counts' counting scope: its captured steps count
+    their launches on the device."""
     emit = emit or (lambda h: print(json.dumps(h), flush=True))
     t_start = time.monotonic()
 

@@ -3,12 +3,17 @@ kernel's wrapper counts through, where it launches its kernel.
 
 A count has a name (``"lk_flow"``) and, where a kernel has several paths
 or shapes, details under it (``"lk_flow/k=57"``, ``"auction/registers"``).
-Outside a CUDA graph capture a launch is counted on the host.  Inside a
-capture :func:`add` enqueues ``+1`` on a device counter in the capturing
-stream, beside the kernel's launch: the graph holds the increment, and
-every replay adds one as it runs the kernel, with no Python running.  A
-device counter must exist before the capture (the first launch outside a
-capture makes it); :func:`add` raises in a capture when it does not.
+Outside a CUDA graph capture a launch is counted on the host, on any
+thread, always.  Inside a capture a launch counts only in the counting
+scope (:func:`counting`, open in any thread of the process while the step
+is captured): there :func:`add` enqueues ``+1`` on a device counter in the
+capturing stream, beside the kernel's launch, so the graph holds the
+increment and every replay adds one as it runs the kernel, with no Python
+running.  Outside the scope a capture holds no increment, and its replays
+run only the program's kernels and count nothing: the main path's default.
+A device counter must exist before the capture (the first launch outside a
+capture makes it); :func:`add` raises in a counted capture when it does
+not.
 
 A kernel may also add into a device counter itself (:func:`counter`):
 the auction kernel adds its bidding rounds there.  Under :func:`paused`
@@ -24,13 +29,15 @@ import threading
 
 import torch
 
-__all__ = ["add", "counter", "details", "get", "paused", "reset", "restore", "snapshot"]
+__all__ = ["add", "counter", "counting", "details", "get", "paused", "reset", "restore", "snapshot"]
 
 _lock = threading.Lock()
 _host: dict[str, int] = {}
 _device: dict[tuple[str, torch.device], torch.Tensor] = {}
 _scratch: dict[tuple[str, torch.device], torch.Tensor] = {}
 _local = threading.local()
+#: the counting scopes open in the process (:func:`counting`)
+_scopes = 0
 
 
 def _under(name: str, prefixes: tuple[str, ...]) -> bool:
@@ -64,7 +71,10 @@ def counter(name: str, device: torch.device) -> torch.Tensor:
 
 def add(device: torch.device, *names: str) -> None:
     """Count one launch of a kernel on ``device`` under each of ``names``
-    (see the module's docstring); nothing under :func:`paused`."""
+    (see the module's docstring); nothing under :func:`paused`, nothing in
+    a capture outside :func:`counting`."""
+    if not _scopes and _capturing(torch.device(device)):
+        return
     counters = [_made(n, device, _device) for n in names]
     if getattr(_local, "paused", False):
         return
@@ -75,6 +85,21 @@ def add(device: torch.device, *names: str) -> None:
     with _lock:
         for n in names:
             _host[n] = _host.get(n, 0) + 1
+
+
+@contextlib.contextmanager
+def counting():
+    """The counting scope: a step captured inside it counts its launches on
+    the device (see the module's docstring).  Scopes nest; the scope is the
+    process's, read when a launch is captured."""
+    global _scopes
+    with _lock:
+        _scopes += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _scopes -= 1
 
 
 @contextlib.contextmanager

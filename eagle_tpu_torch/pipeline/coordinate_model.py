@@ -51,8 +51,6 @@ The entry point runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
-import json
-import time
 import warnings
 from typing import Callable, NamedTuple
 
@@ -63,7 +61,7 @@ from eagle_tpu_torch import pitch
 from eagle_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig, WorkGeometry
 from eagle_tpu_torch.models.bridge import hrnet_from_jax, osnet_from_jax, yolov8_from_jax
 from eagle_tpu_torch.models.checkpoint import load_params
-from eagle_tpu_torch.models.convert import load_hrnet_checkpoint, yolov8_from_torch
+from eagle_tpu_torch.models.convert import hrnet_from_torch, yolov8_from_torch
 from eagle_tpu_torch.models.hrnet import init_hrnet
 from eagle_tpu_torch.models.onnx_import import load_yolov8_onnx
 from eagle_tpu_torch.models.osnet import OSNet, embed_boxes, init_osnet, osnet_from_torch
@@ -91,6 +89,7 @@ from eagle_tpu_torch.pipeline import temporal
 from eagle_tpu_torch.pipeline.transfer import drain_together
 from eagle_tpu_torch.utils import device_constant
 from eagle_tpu_torch.utils.logging import log_event
+from eagle_tpu_torch.utils.profiling import StageTimer, entry_point, new_call, scope
 
 PITCH_WIDTH = 105
 PITCH_HEIGHT = 68
@@ -124,22 +123,37 @@ class PrescaledClip(NamedTuple):
     yuv: bool = False
 
 
+def _read_checkpoint(path: str, onnx: bool = False):
+    """What a checkpoint file holds, read: a ``.msgpack``'s parameter tree,
+    with ``onnx`` an ``.onnx`` export's (read and converted in one), else
+    a torch state dict (``torch.load(weights_only=True)``)."""
+    if path.endswith(".msgpack"):
+        return load_params(path)
+    if onnx and path.endswith(".onnx"):
+        return load_yolov8_onnx(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _keypoint_tree(path: str, raw):
+    return raw if path.endswith(".msgpack") else hrnet_from_torch(raw)
+
+
+def _detector_tree(path: str, raw):
+    return raw if path.endswith((".msgpack", ".onnx")) else yolov8_from_torch(raw)
+
+
 def load_keypoint_params(path: str):
     """An HRNet checkpoint -> its parameter tree: ``.msgpack`` (the JAX
     package's ``save_params``), else a ``.pth`` state dict of the
     reference's ``KeypointModel``."""
-    return load_params(path) if path.endswith(".msgpack") else load_hrnet_checkpoint(path)
+    return _keypoint_tree(path, _read_checkpoint(path))
 
 
 def load_detector_params(path: str):
     """A YOLOv8 checkpoint -> its parameter tree: ``.msgpack``, ``.onnx``
     (an ultralytics export, fused or not), else an ultralytics state dict
     (``torch.load(weights_only=True)``)."""
-    if path.endswith(".msgpack"):
-        return load_params(path)
-    if path.endswith(".onnx"):
-        return load_yolov8_onnx(path)
-    return yolov8_from_torch(torch.load(path, map_location="cpu", weights_only=True))
+    return _detector_tree(path, _read_checkpoint(path, onnx=True))
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -161,54 +175,6 @@ def find_x_at_y(pt1, pt2, y_target):
     m = (y2 - y1) / (x2 - x1)
     c = y1 - m * x1
     return (y_target - c) / m
-
-
-class StageTimer:
-    """Wall-clock seconds per stage; ``sync`` makes each stage end with a
-    device synchronisation so the time lands where the work is.  Each span
-    is also a ``torch.profiler`` range named ``stage:<name>``, so a trace
-    can attribute device time to the stages.  ``counts``: the spans each
-    stage has closed."""
-
-    def __init__(self, device: torch.device, sync: bool = False):
-        self.device = device
-        self.sync = sync
-        self.seconds: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    def __call__(self, name: str):
-        timer = self
-
-        class _Span:
-            def __enter__(self):
-                self.range = torch.profiler.record_function(f"stage:{name}")
-                self.range.__enter__()
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                if timer.sync and timer.device.type == "cuda":
-                    torch.cuda.synchronize(timer.device)
-                timer.seconds[name] = timer.seconds.get(name, 0.0) + time.perf_counter() - self.t0
-                timer.counts[name] = timer.counts.get(name, 0) + 1
-                self.range.__exit__(*exc)
-
-        return _Span()
-
-    def summary(self) -> dict:
-        """{stage: {"total_s", "calls", "mean_ms"}}, largest total first
-        (the JAX package's ``StageTimer.summary``)."""
-        return {
-            name: {
-                "total_s": round(self.seconds[name], 4),
-                "calls": self.counts[name],
-                "mean_ms": round(1e3 * self.seconds[name] / max(1, self.counts[name]), 3),
-            }
-            for name in sorted(self.seconds, key=self.seconds.get, reverse=True)
-        }
-
-    def report(self) -> str:
-        """JSON of the stages' milliseconds, in the order they first ran."""
-        return json.dumps({k: round(v * 1e3, 3) for k, v in self.seconds.items()}, indent=2)
 
 
 def _reid_model(cfg: PipelineConfig, reid_params=None, reid_checkpoint: str | None = None, seed: int = 0):
@@ -285,20 +251,34 @@ class CoordinateModel:
         """``verbose_init`` (the JAX package's keyword, default True there):
         when true, prints ``Using <device> for inference`` once the device
         is resolved, as the JAX package prints its backend; the default
-        prints nothing."""
+        prints nothing.
+
+        Set-up goes to the span log as top-level spans: ``setup:read``
+        (the checkpoint files), ``setup:convert`` (their conversion to the
+        models on the host, or the seeded init; the ReID model's read and
+        conversion), ``setup:upload`` (the models to the device) and, on
+        the card, ``setup:build`` (the hand-written kernels built or found
+        built, and loaded).  ``timer``: the model's own :class:`StageTimer`,
+        which its calls take when given none."""
+        span = StageTimer.span
         cfg = config or DEFAULT_CONFIG
         if cfg.tracker.use_appearance is None:
             # "follow the weights": ReID is on exactly when weights are given
             given = reid_checkpoint is not None or reid_params is not None
             cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, use_appearance=given))
         temporal.check_config(cfg)
-        reid = _reid_model(cfg, reid_params, reid_checkpoint, seed)
+        with span("setup:convert"):
+            reid = _reid_model(cfg, reid_params, reid_checkpoint, seed)
         self.config = cfg
         self.device = resolve_device(device)
+        self.timer = StageTimer(self.device)
         if verbose_init:
             print(f"Using {self.device} for inference")
         #: the appearance slot's OSNet (None with the histogram or no ReID)
-        self.reid_model: OSNet | None = None if reid is None else reid.to(self.device).eval()
+        self.reid_model: OSNet | None = None
+        if reid is not None:
+            with span("setup:upload"):
+                self.reid_model = reid.to(self.device).eval()
         self.keypoint_conf = keypoint_conf
         self.detector_conf = detector_conf
         self.seed = seed
@@ -316,12 +296,17 @@ class CoordinateModel:
         if keypoint_fn is None:
             kcfg = cfg.keypoint
             if keypoint_checkpoint is not None:
-                keypoint_params = load_keypoint_params(keypoint_checkpoint)
-            if keypoint_params is not None:
-                model = hrnet_from_jax(keypoint_params, use_bf16=kcfg.use_bf16)
-            else:
-                model = init_hrnet(seed, kcfg.num_keypoints, use_bf16=kcfg.use_bf16)
-            self.keypoint_model = model.to(self.device).eval()
+                with span("setup:read"):
+                    raw = _read_checkpoint(keypoint_checkpoint)
+            with span("setup:convert"):
+                if keypoint_checkpoint is not None:
+                    keypoint_params = _keypoint_tree(keypoint_checkpoint, raw)
+                if keypoint_params is not None:
+                    model = hrnet_from_jax(keypoint_params, use_bf16=kcfg.use_bf16)
+                else:
+                    model = init_hrnet(seed, kcfg.num_keypoints, use_bf16=kcfg.use_bf16)
+            with span("setup:upload"):
+                self.keypoint_model = model.to(self.device).eval()
 
         self._custom_det = detector_fn is not None
         self._detector_fn = self._default_detector_fn if detector_fn is None else detector_fn
@@ -329,14 +314,38 @@ class CoordinateModel:
         if detector_fn is None:
             dcfg = cfg.detector
             if detector_checkpoint is not None:
-                detector_params = load_detector_params(detector_checkpoint)
-            if detector_params is not None:
-                model = yolov8_from_jax(detector_params, use_bf16=dcfg.use_bf16)
-            else:
-                model = init_yolov8(
-                    seed + 1, CONFIG_VARIANTS[dcfg.variant], dcfg.num_classes, use_bf16=dcfg.use_bf16
-                )
-            self.detector_model = model.to(self.device).eval()
+                with span("setup:read"):
+                    raw = _read_checkpoint(detector_checkpoint, onnx=True)
+            with span("setup:convert"):
+                if detector_checkpoint is not None:
+                    detector_params = _detector_tree(detector_checkpoint, raw)
+                if detector_params is not None:
+                    model = yolov8_from_jax(detector_params, use_bf16=dcfg.use_bf16)
+                else:
+                    model = init_yolov8(
+                        seed + 1, CONFIG_VARIANTS[dcfg.variant], dcfg.num_classes, use_bf16=dcfg.use_bf16
+                    )
+            with span("setup:upload"):
+                self.detector_model = model.to(self.device).eval()
+        if self.device.type == "cuda":
+            with span("setup:build"):
+                self._load_kernels()
+
+    def _load_kernels(self) -> None:
+        """Build (or find built) and load the hand-written kernels this
+        model runs on the card, so that set-up pays for them and not the
+        first clip."""
+        from eagle_tpu_torch.ops import assignment, eigh, nms, optical_flow, prng
+
+        optical_flow._load()
+        prng._load()
+        eigh._load()
+        if self.config.tracker.assignment == "auction":
+            assignment._load_auction()
+        else:
+            assignment._load()
+        if self.detector_model is not None:
+            nms._load()
 
     # ------------------------------------------------------------------
 
@@ -468,7 +477,7 @@ class CoordinateModel:
         cropped from ``x`` (on the working path with the boxes mapped to
         canvas pixels).  ``timer`` takes the stages "detector" and
         "reid"."""
-        timer = timer or StageTimer(self.device)
+        timer = timer or self.timer
         dcfg = self.config.detector
         with timer("detector"):
             if geom.enabled:
@@ -553,7 +562,8 @@ class CoordinateModel:
                 torch.from_numpy(mem_valid[base + found]).to(dev),
                 cfg,
             )
-            seed_xy, seed_ok = seed_xy.cpu().numpy(), seed_ok.cpu().numpy()
+            with StageTimer.span("wait"):
+                seed_xy, seed_ok = seed_xy.cpu().numpy(), seed_ok.cpu().numpy()
             for j in range(found):
                 take = seed_ok[j] & ~mem_valid[base + j]
                 mem_kp[base + j, take, :2] = seed_xy[j, take]
@@ -621,7 +631,9 @@ class CoordinateModel:
                     )
                     carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, keys_fn)
                     self.frames_stepped += 1
-                need = torch.stack([o.need_kp for o in outs]).cpu().numpy()
+                need = torch.stack([o.need_kp for o in outs])
+                with StageTimer.span("wait"):
+                    need = need.cpu().numpy()
             flagged = np.flatnonzero(need & ~mem_attempted)
             if len(flagged) == 0:
                 break
@@ -630,9 +642,10 @@ class CoordinateModel:
 
         def drain():
             # the outputs and the detector rows in one device-to-host copy
-            *leaves, det_np = drain_together(
-                *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
-            )
+            with StageTimer.span("wait"):
+                *leaves, det_np = drain_together(
+                    *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
+                )
             return temporal.FrameOutputs(*leaves), det_np
 
         return drain, carries[n]
@@ -675,7 +688,8 @@ class CoordinateModel:
                         is_kp[lo:hi], is_h[lo:hi],
                     )
                     self.frames_stepped += hi - lo
-                packed, det_np = drain_together(torch.cat(outs), det[..., :7])
+                with StageTimer.span("wait"):
+                    packed, det_np = drain_together(torch.cat(outs), det[..., :7])
             out = temporal.unpack_outputs(packed, cfg.tracker.max_tracks)
             flagged = np.flatnonzero(out.need_kp & ~mem_attempted)
             if len(flagged) == 0:
@@ -751,11 +765,14 @@ class CoordinateModel:
             if self._custom_kp:
                 rows.append(self._custom_keypoints(frames[sel])[:real])
             else:
-                rows.append(self.run_keypoints(dev_frames[sel], geom, img_hw)[:real].cpu().numpy())
+                kp = self.run_keypoints(dev_frames[sel], geom, img_hw)[:real]
+                with StageTimer.span("wait"):
+                    rows.append(kp.cpu().numpy())
         return np.concatenate(rows) if rows else np.zeros((0, 57, 4), np.float32)
 
     # ------------------------------------------------------------------
 
+    @entry_point("get_coordinates")
     def get_coordinates(
         self,
         frames,
@@ -777,7 +794,12 @@ class CoordinateModel:
         argument wins, and it defaults to off).  ``profile`` (the JAX
         package's keyword) or ``timer``, not both: a :class:`StageTimer`
         that collects per-stage wall-clock seconds (prescale, detector,
-        reid when appearance is on, keypoints, temporal, assembly).
+        reid when appearance is on, keypoints, temporal, assembly); the
+        model's own (``self.timer``) when neither is given.  The stages and
+        the main thread's waits on the card (a ``wait`` span around each
+        read-back that blocks: the keypoint batches, the backward seed,
+        the on-demand rounds' flags, the outputs' drain) go to the span log
+        (:mod:`eagle_tpu_torch.utils.profiling`), under the call's id.
         ``prescaled``: this clip's :meth:`prescale_clip`, made beforehand.
 
         ``_clip_lens`` is for :class:`~eagle_tpu_torch.pipeline.multiclip.MultiClipRunner`
@@ -800,7 +822,8 @@ class CoordinateModel:
         each frame's RANSAC draws."""
         if profile is not None and timer is not None:
             raise ValueError("pass profile= or timer=, not both (they are the same StageTimer)")
-        timer = profile or timer or StageTimer(self.device)
+        timer = profile or timer or self.timer
+        before = timer.totals()
         t0 = 0 if _stream_in is None else int(_stream_in["t"])
         if _clip_lens is not None:
             if self._custom_kp or self._custom_det:
@@ -928,8 +951,10 @@ class CoordinateModel:
                 )
                 for base, ln, off in parts
             ]
-        # the stage totals in seconds, largest first, as the JAX package logs them
-        totals = sorted(timer.seconds.items(), key=lambda kv: kv[1], reverse=True)
+        # the call's stage totals in seconds, largest first, as the JAX
+        # package logs them (a timer may hold earlier calls' seconds)
+        spent = {k: v - before.get(k, 0.0) for k, v in timer.totals().items() if v > before.get(k, 0.0)}
+        totals = sorted(spent.items(), key=lambda kv: kv[1], reverse=True)
         log_event("get_coordinates", frames=n, **{k: round(v, 4) for k, v in totals})
         if _clip_lens is not None:
             return res
@@ -973,28 +998,32 @@ class CoordinateModel:
         ``prefetch="auto"``: with a spare CPU core, a worker thread pulls
         the next block from ``segments`` (the decode) and prescales it on
         the host while this block runs on the device.  ``profile`` or
-        ``timer`` (not both) accumulates the stages over the blocks."""
+        ``timer`` (not both) accumulates the stages over the blocks.  The
+        stream is one call in the span log, each block a request named by
+        its first global frame."""
         if profile is not None and timer is not None:
             raise ValueError("pass profile= or timer=, not both (they are the same StageTimer)")
         chunk = self.config.chunk_frames
         state: dict | None = None
         buf: np.ndarray | None = None
-        timer = profile or timer or StageTimer(self.device)
+        timer = profile or timer or self.timer
+        call = new_call("stream_coordinates")
 
         def run(block, prescaled=None):
             nonlocal state
-            res, state = self.get_coordinates(
-                block,
-                fps,
-                num_homography=num_homography,
-                num_keypoint_detection=num_keypoint_detection,
-                verbose=verbose,
-                calibration=calibration,
-                timer=timer,
-                prescaled=prescaled,
-                _stream_in=state,
-                _stream_out=True,
-            )
+            with scope(call, 0 if state is None else int(state["t"])):
+                res, state = self.get_coordinates(
+                    block,
+                    fps,
+                    num_homography=num_homography,
+                    num_keypoint_detection=num_keypoint_detection,
+                    verbose=verbose,
+                    calibration=calibration,
+                    timer=timer,
+                    prescaled=prescaled,
+                    _stream_in=state,
+                    _stream_out=True,
+                )
             return res
 
         def blocks():

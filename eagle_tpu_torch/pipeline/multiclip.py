@@ -71,7 +71,7 @@ class MultiClipRunner:
     ) -> list[dict]:
         """One ``get_coordinates`` dict per clip, on every rank of the mesh.
         ``profile``: a :class:`StageTimer` accumulating the stages'
-        wall-clock seconds (this rank's)."""
+        wall-clock seconds (this rank's); the model's own by default."""
         kw = dict(num_homography=num_homography, num_keypoint_detection=num_keypoint_detection,
                   verbose=verbose, profile=profile)
         if self.mesh.group is None:
@@ -83,7 +83,7 @@ class MultiClipRunner:
     def _run(self, clips, fps, num_homography, num_keypoint_detection, verbose, profile) -> list[dict]:
         """The clips on this rank's device."""
         model = self.model
-        timer = profile or StageTimer(model.device)
+        timer = profile or model.timer
         clips = [np.asarray(c) for c in clips]
         img_hw = (int(clips[0].shape[1]), int(clips[0].shape[2]))
         if any(tuple(c.shape[1:3]) != img_hw for c in clips):

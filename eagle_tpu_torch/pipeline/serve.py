@@ -13,10 +13,12 @@ The results equal the sequential ones exactly.
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 from eagle_tpu_torch.pipeline.processor import Processor, Table
+from eagle_tpu_torch.utils.profiling import new_call, scope
 
 
 class ClipResult(NamedTuple):
@@ -55,53 +57,86 @@ def serve_clips(
 
     ``clips`` may be a generator (e.g. decoding on demand): at most three
     clips are alive at once (one post-processed, one perceived, one
-    prescaled)."""
+    prescaled).
 
-    def post(coords, clip):
-        proc = Processor(
-            coords,
-            clip,
-            fps,
-            filter_ball_detections=filter_ball_detections,
-            config=processor_config,
-            device=model.device,
-        )
-        table, team_mapping = proc.process_data(smooth=smooth)
-        return ClipResult(coords, table, team_mapping, proc.format_data(table))
+    Tracing: the call is one call in the span log
+    (:mod:`eagle_tpu_torch.utils.profiling`, unix-ns clock), clip k its
+    request k, and each clip has four spans: ``serve:queued`` on the
+    thread that iterates, from the clip leaving ``clips`` to the start of
+    its perception; ``serve:perceive``, its ``get_coordinates`` there (the
+    model's stages inside); ``serve:post``, its Processor job, on the
+    worker with ``overlap`` (the Processor's stages inside, on the model's
+    :class:`StageTimer`), with ``serve:frames`` counting its frames; and
+    ``serve:held``, from the end of that job to the moment the result is
+    yielded (0 long in the reference's order)."""
+    timer = model.timer
+    call = new_call("serve_clips")
 
-    def perceive(clip, prescaled=None):
-        return model.get_coordinates(
-            clip,
-            fps,
-            num_homography=num_homography,
-            num_keypoint_detection=num_keypoint_detection,
-            calibration=calibration,
-            prescaled=prescaled,
-        )
+    def post(k, coords, clip):
+        """Clip k's Processor job -> (its result, when the job ended)."""
+        with scope(call, k), timer.span("serve:post") as span:
+            proc = Processor(
+                coords,
+                clip,
+                fps,
+                filter_ball_detections=filter_ball_detections,
+                config=processor_config,
+                device=model.device,
+                timer=timer,
+            )
+            table, team_mapping = proc.process_data(smooth=smooth)
+            res = ClipResult(coords, table, team_mapping, proc.format_data(table))
+            timer.count("serve:frames", len(coords))
+        return res, span.end
+
+    def perceive(k, clip, pulled, prescaled=None):
+        with scope(call, k):
+            timer.record("serve:queued", pulled, time.time_ns())
+            with timer.span("serve:perceive"):
+                return model.get_coordinates(
+                    clip,
+                    fps,
+                    num_homography=num_homography,
+                    num_keypoint_detection=num_keypoint_detection,
+                    calibration=calibration,
+                    prescaled=prescaled,
+                )
+
+    def held(k, done, until=None):
+        """Clip k's result, its ``serve:held`` span ended at ``until``
+        (now by default)."""
+        res, ended = done
+        with scope(call, k):
+            timer.record("serve:held", ended, until or time.time_ns())
+        return res
 
     if overlap == "auto":
         from eagle_tpu_torch.utils import available_cpus
 
         overlap = available_cpus() > 1
     if not overlap:
-        for clip in clips:
-            yield post(perceive(clip), clip)
+        for k, clip in enumerate(clips):
+            done = post(k, perceive(k, clip, time.time_ns()), clip)
+            yield held(k, done, until=done[1])
         return
 
     it = iter(clips)
     with ThreadPoolExecutor(max_workers=1) as ex, ThreadPoolExecutor(max_workers=1) as pre_ex:
         pending = None
         cur = next(it, None)
+        pulled = time.time_ns()
+        k = 0
         pre = None  # the prescale future of `cur` (none for the first clip)
         while cur is not None:
             nxt = next(it, None)
+            pulled_next = time.time_ns()
             pre_next = pre_ex.submit(model.prescale_clip, nxt) if nxt is not None else None
-            coords = perceive(cur, pre.result() if pre is not None else None)
+            coords = perceive(k, cur, pulled, pre.result() if pre is not None else None)
             if pending is not None:
-                yield pending.result()
+                yield held(k - 1, pending.result())
             # submitted after the previous result is out: yields stay in
             # order, and one Processor job at most is in flight
-            pending = ex.submit(post, coords, cur)
-            cur, pre = nxt, pre_next
+            pending = ex.submit(post, k, coords, cur)
+            cur, pre, pulled, k = nxt, pre_next, pulled_next, k + 1
         if pending is not None:
-            yield pending.result()
+            yield held(k - 1, pending.result())

@@ -24,15 +24,16 @@ runs :func:`temporal.temporal_step_static` on the same slots eagerly: the
 explicit CPU path, which runs everything but the capture.
 
 The kernels' wrappers count their launches through
-:mod:`eagle_tpu_torch.ops.launch_counts`: in the capture each count is an
-increment of a device counter, held by the graph beside its kernel, so a
-replay counts what it launches.  The warm-up step counts nothing.  There
-is no fallback: a step that cannot be captured raises.
+:mod:`eagle_tpu_torch.ops.launch_counts`: a step captured inside its
+counting scope (:func:`~eagle_tpu_torch.ops.launch_counts.counting`) holds
+an increment of a device counter beside each counted kernel, so a replay
+counts what it launches; a step captured outside it holds none.  The
+warm-up step counts nothing.  The warm-up and the capture are the span
+``setup:capture`` in the span log.  There is no fallback: a step that
+cannot be captured raises.
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 
@@ -40,6 +41,7 @@ from eagle_tpu_torch.config import PipelineConfig
 from eagle_tpu_torch.ops import launch_counts
 from eagle_tpu_torch.ops.optical_flow import alloc_frames
 from eagle_tpu_torch.pipeline import temporal
+from eagle_tpu_torch.utils.profiling import StageTimer
 
 
 def _leaves(carry: temporal.TemporalCarry) -> list[torch.Tensor]:
@@ -96,7 +98,8 @@ class StepGraph:
         width = temporal.packed_width(cfg.tracker.max_tracks)
         self.out = torch.zeros(chunk, width, device=dev)
         self.graph = None
-        #: seconds the warm-up and the capture took (None on the CPU)
+        #: seconds the warm-up and the capture took (None on the CPU): its
+        #: ``setup:capture`` span
         self.capture_s: float | None = None
 
     # ------------------------------------------------------------------
@@ -141,20 +144,20 @@ class StepGraph:
         counters), which counts nothing, then the capture, which runs
         nothing.  The warm-up runs on the slots as they are and advances
         them: :meth:`run_chunk` captures before it loads a chunk."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side), launch_counts.paused():
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's work on the card (a served clip's
-        # Processor) goes on while the step is captured
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._step()
-        self.graph = graph
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
+        with StageTimer.span("setup:capture") as span:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side), launch_counts.paused():
+                self._step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's work on the card (a served clip's
+            # Processor) goes on while the step is captured
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._step()
+            self.graph = graph
+            torch.cuda.synchronize(self.device)
+        self.capture_s = span.seconds
 
     # ------------------------------------------------------------------
 

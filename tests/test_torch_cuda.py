@@ -26,7 +26,8 @@ at full width (one NMS launch a call, what ``run_detector`` gives) and
 .mp4 (``main.main --video_path``) with oracle runners of the port's
 synthetic scene: the card's four files against the CPU run's (within 1 px
 and 1 m, as ``chip_smoke.py``'s cli phase holds them; the team mapping
-equal).
+equal); a step captured outside the launch counts' counting scope holds
+no counter increment (the tests that read captured counts open it).
 
 The machine with the card has no JAX, so this file imports nothing of
 JAX or of the JAX package, and runs without the suite's conftest (which
@@ -289,8 +290,9 @@ def test_stream_on_the_card_equals_one_shot_without_staging(dev):
     model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
     lc.reset("lk_flow/staged")
     launches = lc.get("lk_flow")
-    blocks = list(model.stream_coordinates([frames[:10], frames[10:33], frames[33:]], 8, num_keypoint_detection=2,
-                                           prefetch=False))
+    with lc.counting():  # the captured steps count their launches
+        blocks = list(model.stream_coordinates([frames[:10], frames[10:33], frames[33:]], 8,
+                                               num_keypoint_detection=2, prefetch=False))
     torch.cuda.synchronize()
     assert [len(b) for b in blocks] == [32, 8]
     assert {k: v for b in blocks for k, v in b.items()} == one
@@ -764,7 +766,8 @@ def test_a_world_of_one_under_nccl_equals_the_single_device_runner(dev, tmp_path
         assert (mesh.size, mesh.backend, mesh.device) == (1, "nccl", torch.device("cuda", torch.cuda.current_device()))
         model = CoordinateModel(config=cfg, keypoint_fn=kp_fn, detector_fn=det_fn, device="cuda")
         launches = lc.get("lk_flow")
-        got = MultiClipRunner(model, mesh=mesh).run(clips, 8, num_keypoint_detection=2)
+        with lc.counting():  # the captured steps count their launches
+            got = MultiClipRunner(model, mesh=mesh).run(clips, 8, num_keypoint_detection=2)
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
@@ -951,7 +954,8 @@ def test_cli_from_an_mp4_on_the_card_writes_the_cpu_run_files(dev, tmp_path, mon
         (tmp_path / where).mkdir()
         monkeypatch.chdir(tmp_path / where)
         before = lc.get("lk_flow")
-        tmain.main(["--video_path", mp4, "--fps", "8", *flags])
+        with lc.counting():  # the captured steps count their launches
+            tmain.main(["--video_path", mp4, "--fps", "8", *flags])
         assert (lc.get("lk_flow") > before) == (where == "card")
         out = tmp_path / where / "output" / "clip"
         assert sorted(p.name for p in out.iterdir()) == sorted(
@@ -1072,7 +1076,8 @@ def test_graph_equals_eager_on_the_card(dev, appearance):
     for path in ("frames", "chunks"):
         model, frames = _scene_model(path, **(dict(tracker=tracker) if appearance else {}))
         counts = (lc.get("lk_flow"), lc.get("auction"), lc.get("ransac_keys"), lc.get("eigh9"))
-        runs[path] = model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
+        with lc.counting():  # the captured steps count their launches
+            runs[path] = model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
         torch.cuda.synchronize()
         runs[path + "_launches"] = [lc.get(k) - c for k, c in zip(("lk_flow", "auction", "ransac_keys", "eigh9"), counts)]
         if path == "chunks":
@@ -1110,3 +1115,29 @@ def test_step_graph_makes_no_host_sync(dev):
             torch.cuda.set_sync_debug_mode("default")
         outs.append(out)
     assert torch.equal(outs[0], outs[1])
+
+
+def test_a_step_captured_outside_the_counting_scope_counts_nothing(dev):
+    """The main path's default: a step captured outside the launch counts'
+    counting scope holds no counter increment, so its replay adds nothing
+    to the device counters; the same step captured inside the scope adds
+    one a counted name: the flow launch's three names, two for each of the
+    three auction launches, one for each of the two eigen solves and one
+    for the keys.  The runs' outputs are the same."""
+    import contextlib
+
+    got, outs = {}, {}
+    for counted in (False, True):
+        model, frames = _scene_model("chunks", n=16)
+        with lc.counting() if counted else contextlib.nullcontext():
+            outs[counted] = model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
+        sg = next(iter(model._step_graphs.values()))
+        sg.index.zero_()  # the chunk's first step again, on its loaded slots
+        torch.cuda.synchronize()
+        before = lc.snapshot()[1]
+        sg.graph.replay()
+        torch.cuda.synchronize()
+        after = lc.snapshot()[1]
+        got[counted] = sum(int(after[k] - before[k]) for k in before if k[0] != "auction_rounds")
+    assert outs[False] == outs[True]
+    assert got == {False: 0, True: 12}

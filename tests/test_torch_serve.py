@@ -2,12 +2,15 @@
 serve.py::serve_clips``): the results equal the reference's sequential
 order -- ``get_coordinates``, then the ``Processor`` and ``format_data``,
 one clip at a time -- with the Processor of clip k on a worker thread
-while clip k+1 is perceived, and clip k+1's host prescale prefetched.
+while clip k+1 is perceived, and clip k+1's host prescale prefetched; its
+four spans a clip in the span log, and the log against the profiler's
+trace.
 
 Tolerance: none (coordinates, the table with NaN equal to NaN, the team
 mapping and the formatted records are equal)."""
 
 import math
+import threading
 
 import pytest
 import torch
@@ -17,6 +20,7 @@ from eagle_tpu_torch.pipeline import serve as serve_mod
 from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel as TModel
 from eagle_tpu_torch.pipeline.processor import Processor
 from eagle_tpu_torch.pipeline.serve import ClipResult, serve_clips
+from eagle_tpu_torch.utils.profiling import LOG
 
 from .oracles import oracle_detector_fn, oracle_keypoint_fn
 
@@ -103,3 +107,83 @@ def test_overlap_auto_follows_available_cpus(scene, monkeypatch):
     (many,) = serve_clips(_model(scene), [scene.frames[:6]], FPS)
     assert len(built) == 2
     assert one.coordinates == many.coordinates and one.formatted == many.formatted
+
+
+SERVE = ("serve:queued", "serve:perceive", "serve:post", "serve:held")
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_serve_logs_four_spans_a_clip(scene, overlap):
+    """One ``serve_clips`` call in the span log: each clip, its request id,
+    has one ``serve:queued``, ``serve:perceive``, ``serve:post`` and
+    ``serve:held``, in that order, held from the end of its Processor job;
+    the perception's stages inside ``serve:perceive`` on the main thread;
+    the Processor's stages and its frame count inside ``serve:post``, on
+    the worker's thread with ``overlap``; ``serve:held`` 0 long in the
+    reference's order.  The model's timer took both's stages."""
+    model = _model(scene)
+    clips = _clips(scene)
+    list(serve_clips(model, iter(clips), FPS, num_keypoint_detection=2, overlap=overlap))
+    recs = LOG.records()
+    call = max(r.id for r in recs if r.kind == "call" and r.name == "serve_clips")
+    mine = [r for r in recs if r.call == call]
+    main = threading.main_thread().ident
+    for k, clip in enumerate(clips):
+        spans = [[r for r in mine if r.request == k and r.name == n] for n in SERVE]
+        assert [len(s) for s in spans] == [1, 1, 1, 1], k
+        queued, perceive, post, held = (s[0] for s in spans)
+        assert queued.end <= perceive.start <= perceive.end <= post.start <= post.end == held.start <= held.end
+        assert (queued.thread, perceive.thread, held.thread) == (main, main, main)
+        assert (post.thread != main) == overlap
+        inner = [r for r in mine if r.parent == perceive.id]
+        assert {"prescale", "detector", "keypoints", "temporal", "assembly"} <= {r.name for r in inner}
+        assert all(r.thread == main for r in inner)
+        job = [r for r in mine if r.parent == post.id]
+        assert {"crops", "votes", "table", "merge", "format"} <= {r.name for r in job}
+        assert all(r.thread == post.thread and r.request == k for r in job)
+        assert [r.value for r in job if r.name == "serve:frames"] == [len(clip)]
+        assert (held.end == held.start) == (not overlap)
+    assert {"prescale", "temporal", "crops", "votes", "table", "merge", "format"} <= set(model.timer.seconds)
+
+
+#: the ``stage:`` ranges a clip opens in the trace: the perception's; in
+#: the reference's order also the Processor's, on the main thread then
+PERCEPTION_RANGES = {"prescale": 1, "detector": 1, "keypoints": 1, "temporal": 2, "assembly": 1}
+PROCESSOR_RANGES = {"crops": 2, "votes": 3, "table": 1, "merge": 2, "format": 1}
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_the_log_sits_on_the_trace_clock(scene, tmp_path, overlap):
+    """Two clips served under the CPU profiler: the trace's ``stage:``
+    ranges are the stages the main thread opens outside another stage, a
+    clip the perception's and, in the reference's order, the Processor's
+    (none of the worker's, the serving spans or the waits); each is a
+    ranged span of the log, in order, at ``ts * 1e3 +
+    baseTimeNanoseconds``.  The profiler stamps a range halfway through
+    opening it, tens of microseconds on this CPU, and a thread switch can
+    hold one stamp back: the median start or end within 20 us of the
+    range's, nine in ten within 50 us."""
+    import collections
+    import json
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    model = _model(scene)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm-up"):  # the profiler's first range is slow to open
+            pass
+        list(serve_clips(model, iter(_clips(scene)[:2]), FPS, num_keypoint_detection=2, overlap=overlap))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    base = trace["baseTimeNanoseconds"]
+    ranges = sorted((e["ts"], e["dur"], e["name"][len("stage:"):]) for e in trace["traceEvents"]
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith("stage:"))
+    call = max(r.id for r in LOG.records() if r.kind == "call" and r.name == "serve_clips")
+    logged = sorted((r for r in LOG.records() if r.call == call and r.ranged), key=lambda r: r.start)
+    want = collections.Counter({**PERCEPTION_RANGES, **({} if overlap else PROCESSOR_RANGES)})
+    assert collections.Counter(name for _, _, name in ranges) == want + want
+    assert [name for _, _, name in ranges] == [r.name for r in logged]
+    gaps = sorted(abs(x - y) for (ts, dur, _), r in zip(ranges, logged)
+                  for x, y in ((base + round(ts * 1e3), r.start), (base + round((ts + dur) * 1e3), r.end)))
+    assert statistics.median(gaps) <= 20_000 and gaps[int(0.9 * len(gaps))] <= 50_000
