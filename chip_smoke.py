@@ -3034,7 +3034,7 @@ def stream_serve(frames, pts) -> None:
     torch.cuda.synchronize()
     seq_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    got = list(serve_clips(model(), iter(clips), FPS, num_keypoint_detection=3, overlap=True))
+    got = list(serve_clips(model(), clips, FPS, num_keypoint_detection=3, overlap=True))
     torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
     if len(got) != len(clips):

@@ -1,16 +1,20 @@
 """PyTorch port, clip-pipelined serving (``eagle_tpu_torch/pipeline/
 serve.py::serve_clips``): the results equal the reference's sequential
 order -- ``get_coordinates``, then the ``Processor`` and ``format_data``,
-one clip at a time -- with the Processor of clip k on a worker thread
-while clip k+1 is perceived, and clip k+1's host prescale prefetched; its
-four spans a clip in the span log, and the log against the profiler's
-trace.
+one clip at a time -- over a backlog (clips with a length: the Processor
+of clip k on a worker thread while clip k+1 is perceived, and clip k+1's
+host prescale prefetched) and over a generator (a feed, instant or paced:
+the reference's order, each result out before the next clip is asked
+for); the clips iterated on the consumer's thread only; four spans and
+the order's count a clip in the span log, and the log against the
+profiler's trace.
 
 Tolerance: none (coordinates, the table with NaN equal to NaN, the team
 mapping and the formatted records are equal)."""
 
 import math
 import threading
+import time
 
 import pytest
 import torch
@@ -68,6 +72,75 @@ def sequential(scene):
     return out
 
 
+#: seconds a paced source sleeps before each clip: ten times a Processor
+#: job at the tests' size on a CPU
+PACE = 0.5
+
+
+def _source(clips, pace, asks):
+    """The clips from a generator that sleeps ``pace`` s before each and
+    appends ("ask", i, its thread) to ``asks`` each time it is asked for
+    clip i (i = len(clips) at the end)."""
+    for i, clip in enumerate(clips):
+        asks.append(("ask", i, threading.get_ident()))
+        time.sleep(pace)
+        yield clip
+    asks.append(("ask", len(clips), threading.get_ident()))
+
+
+class _Backlog:
+    """Clips with a length, as a dataset holds them: each read (a sleep of
+    ``read_s``) when asked for, the asks logged as by :func:`_source`."""
+
+    def __init__(self, clips, asks, read_s=0.0):
+        self.clips, self.asks, self.read_s = clips, asks, read_s
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __iter__(self):
+        return _source(self.clips, self.read_s, self.asks)
+
+
+class Served:
+    """One ``serve_clips(overlap=True)`` run over the scene's clips as a
+    backlog or as a paced feed: its results, the source's requests and the
+    consumer's receipts in the order they happened ("got", k, thread), its
+    call's records of the span log and its model."""
+
+    def __init__(self, scene, source):
+        self.model = _model(scene)
+        self.events: list = []
+        clips = _clips(scene)
+        src = _Backlog(clips, self.events) if source == "backlog" else _source(clips, PACE, self.events)
+        self.results = []
+        for k, res in enumerate(serve_clips(self.model, src, FPS, num_keypoint_detection=2, overlap=True)):
+            self.events.append(("got", k, threading.get_ident()))
+            self.results.append(res)
+        recs = LOG.records()
+        call = max(r.id for r in recs if r.kind == "call" and r.name == "serve_clips")
+        self.records = [r for r in recs if r.call == call]
+
+
+@pytest.fixture(scope="module")
+def served(scene):
+    """``served(source)``: one run a source, shared by the tests."""
+    runs = {}
+
+    def get(source):
+        if source not in runs:
+            runs[source] = Served(scene, source)
+        return runs[source]
+
+    return get
+
+
+def _order(records):
+    """Each clip's ``serve:read_ahead`` count, by request."""
+    counts = {r.request: r.value for r in records if r.kind == "count" and r.name == "serve:read_ahead"}
+    return [counts[k] for k in sorted(counts)]
+
+
 @pytest.mark.parametrize("overlap", [False, True])
 def test_serve_matches_sequential_exactly(scene, sequential, overlap):
     """Three clips from a generator, in order, each equal to its sequential
@@ -75,6 +148,20 @@ def test_serve_matches_sequential_exactly(scene, sequential, overlap):
     served = list(serve_clips(_model(scene), iter(_clips(scene)), FPS, num_keypoint_detection=2, overlap=overlap))
     assert len(served) == 3
     for got, exp in zip(served, sequential):
+        assert got.coordinates == exp.coordinates
+        assert_tables_equal(got.table, exp.table)
+        assert got.team_mapping == exp.team_mapping and len(set(exp.team_mapping.values())) == 2
+        assert got.formatted == exp.formatted
+
+
+@pytest.mark.parametrize("source", ["backlog", "paced"])
+def test_served_sources_match_sequential_exactly(served, sequential, source):
+    """``overlap=True`` over a backlog (read ahead) and over a paced feed
+    (the reference's order): three clips, in order, each equal to its
+    sequential run."""
+    results = served(source).results
+    assert len(results) == 3
+    for got, exp in zip(results, sequential):
         assert got.coordinates == exp.coordinates
         assert_tables_equal(got.table, exp.table)
         assert got.team_mapping == exp.team_mapping and len(set(exp.team_mapping.values())) == 2
@@ -119,11 +206,13 @@ def test_serve_logs_four_spans_a_clip(scene, overlap):
     ``serve:held``, in that order, held from the end of its Processor job;
     the perception's stages inside ``serve:perceive`` on the main thread;
     the Processor's stages and its frame count inside ``serve:post``, on
-    the worker's thread with ``overlap``; ``serve:held`` 0 long in the
-    reference's order.  The model's timer took both's stages."""
+    the worker's thread with ``overlap`` (the clips are a list: a
+    backlog); ``serve:held`` 0 long in the reference's order; the
+    ``serve:read_ahead`` count 1 a clip with ``overlap``, else 0.  The
+    model's timer took both's stages."""
     model = _model(scene)
     clips = _clips(scene)
-    list(serve_clips(model, iter(clips), FPS, num_keypoint_detection=2, overlap=overlap))
+    list(serve_clips(model, clips, FPS, num_keypoint_detection=2, overlap=overlap))
     recs = LOG.records()
     call = max(r.id for r in recs if r.kind == "call" and r.name == "serve_clips")
     mine = [r for r in recs if r.call == call]
@@ -143,7 +232,106 @@ def test_serve_logs_four_spans_a_clip(scene, overlap):
         assert all(r.thread == post.thread and r.request == k for r in job)
         assert [r.value for r in job if r.name == "serve:frames"] == [len(clip)]
         assert (held.end == held.start) == (not overlap)
+    assert _order(mine) == [int(overlap)] * len(clips)
     assert {"prescale", "temporal", "crops", "votes", "table", "merge", "format"} <= set(model.timer.seconds)
+
+
+def test_a_paced_feed_is_served_in_the_reference_order(served):
+    """``overlap=True`` over a generator that sleeps before each clip:
+    each clip's four spans, its Processor job on the consumer's thread,
+    ``serve:held`` 0 long and ended before the next clip is asked for, the
+    ``serve:read_ahead`` count 0 a clip, and result k in the consumer's
+    hands before clip k+1 is asked for."""
+    run = served("paced")
+    main = threading.main_thread().ident
+    for k in range(3):
+        queued, perceive, post, held = (next(r for r in run.records if r.request == k and r.name == n) for n in SERVE)
+        assert queued.end <= perceive.start <= perceive.end <= post.start <= post.end == held.start == held.end
+        assert {queued.thread, perceive.thread, post.thread, held.thread} == {main}
+    assert _order(run.records) == [0, 0, 0]
+    at = {e[:2]: i for i, e in enumerate(run.events)}
+    assert all(at["got", k] < at["ask", k + 1] for k in range(3))
+
+
+def test_a_backlog_is_read_ahead(served):
+    """``overlap=True`` over clips with a length: clip k+1 asked for
+    before result k is out, for every clip, and the ``serve:read_ahead``
+    count 1 a clip."""
+    run = served("backlog")
+    at = {e[:2]: i for i, e in enumerate(run.events)}
+    assert all(at["ask", k + 1] < at["got", k] for k in range(3))
+    assert _order(run.records) == [1, 1, 1]
+
+
+@pytest.mark.parametrize("source", ["backlog", "paced"])
+def test_clips_are_iterated_on_the_consumers_thread(served, source):
+    """Every ``next()`` on ``clips`` runs on the thread that iterates
+    ``serve_clips`` (a source may hold thread-local state, such as a
+    profiler it started): no feeder thread, in either order."""
+    run = served(source)
+    asks = [e for e in run.events if e[0] == "ask"]
+    assert len(asks) == 4
+    assert {e[2] for e in run.events} == {threading.get_ident()}
+
+
+class _FakeModel:
+    """A model whose perception of a clip returns it at once."""
+
+    def __init__(self):
+        from eagle_tpu_torch.utils.profiling import StageTimer
+
+        self.timer, self.device = StageTimer(), "cpu"
+
+    def prescale_clip(self, clip):
+        return clip
+
+    def get_coordinates(self, clip, fps, prescaled=None, **kw):
+        return {0: clip}
+
+
+class _FakeProcessor:
+    """A Processor whose table is its clip."""
+
+    def __init__(self, coords, clip, fps, **kw):
+        self.clip = clip
+
+    def process_data(self, smooth=False):
+        return self.clip, {}
+
+    def format_data(self, table):
+        return [table]
+
+
+@pytest.mark.parametrize("kind,read_s,overlap,ahead", [
+    ("list", 0.0, True, 1),
+    ("backlog", 0.01, True, 1),  # a dataset reading each clip in 10 ms
+    ("list", 0.0, False, 0),
+    ("generator", 0.0, True, 0),
+    ("generator", 0.01, True, 0),  # a generator decoding each clip in 10 ms
+])
+def test_the_order_follows_whether_the_clips_have_a_length(monkeypatch, kind, read_s, overlap, ahead):
+    """With ``overlap``, clips with a length are read ahead, however long
+    each takes to read; a generator is served in the reference's order,
+    however fast it hands its clips (a decoder 10 ms behind and a feed 10
+    ms ahead look alike); ``overlap=False`` keeps the reference's order.
+    The ``serve:read_ahead`` count says which, and results come in order
+    either way."""
+    monkeypatch.setattr(serve_mod, "Processor", _FakeProcessor)
+    events: list = []
+    clips = list(range(5))
+    src = {"list": clips, "backlog": _Backlog(clips, events, read_s),
+           "generator": _source(clips, read_s, events)}[kind]
+    got = []
+    for k, res in enumerate(serve_clips(_FakeModel(), src, FPS, overlap=overlap)):
+        events.append(("got", k, threading.get_ident()))
+        got.append(res.table)
+    assert got == clips
+    recs = LOG.records()
+    call = max(r.id for r in recs if r.kind == "call" and r.name == "serve_clips")
+    assert _order([r for r in recs if r.call == call]) == [ahead] * 5
+    if kind != "list":
+        at = {e[:2]: i for i, e in enumerate(events)}
+        assert all((at["ask", k + 1] < at["got", k]) == bool(ahead) for k in range(5))
 
 
 #: the ``stage:`` ranges a clip opens in the trace: the perception's; in
@@ -157,7 +345,8 @@ def test_the_log_sits_on_the_trace_clock(scene, tmp_path, overlap):
     """Two clips served under the CPU profiler: the trace's ``stage:``
     ranges are the stages the main thread opens outside another stage, a
     clip the perception's and, in the reference's order, the Processor's
-    (none of the worker's, the serving spans or the waits); each is a
+    (none of the worker's, the serving spans or the waits; the clips are
+    a list, read ahead with ``overlap``); each is a
     ranged span of the log, in order, at ``ts * 1e3 +
     baseTimeNanoseconds``.  The profiler stamps a range halfway through
     opening it, tens of microseconds on this CPU, and a thread switch can
@@ -173,7 +362,7 @@ def test_the_log_sits_on_the_trace_clock(scene, tmp_path, overlap):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with record_function("warm-up"):  # the profiler's first range is slow to open
             pass
-        list(serve_clips(model, iter(_clips(scene)[:2]), FPS, num_keypoint_detection=2, overlap=overlap))
+        list(serve_clips(model, _clips(scene)[:2], FPS, num_keypoint_detection=2, overlap=overlap))
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     trace = json.loads((tmp_path / "trace.json").read_text())
     base = trace["baseTimeNanoseconds"]
