@@ -23,7 +23,7 @@ from benchmark.frozen import pitch
 from benchmark.frozen.oracles import oracle_detections_at, oracle_keypoint_fn
 from benchmark.frozen.synthetic import make_scene
 from benchmark.inject import Injection
-from benchmark.reference import hrnet, judge, preprocess, yolov8
+from benchmark.reference import hrnet, judge, osnet, preprocess, yolov8
 from benchmark.work import flops, lk_flow
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,6 +60,11 @@ class Run:
         with open(os.path.join(HERE, "limits", f"{cell['name']}.json")) as f:
             self.limits = json.load(f)
         self.cadence = dict(config["cadence"])
+        #: the tracker's appearance network, where the configuration has one
+        self.reid = config.get("reid")
+        if self.reid is not None and self.reid.get("family") != "osnet":
+            raise ValueError(f"configuration {config['name']!r}: the benchmark takes the appearance network of "
+                             f"the family 'osnet' only, not {self.reid.get('family')!r}")
         #: the run's scratch folder (``TMPDIR``): weights and traces, deleted after use
         self.tmp_dir = tempfile.gettempdir()
         self.scenes: list = []
@@ -91,7 +96,8 @@ class Run:
     def build(self) -> None:
         """Weights from the seed in the published layouts (their BatchNorm
         statistics set on the first scene's first frame by the float32
-        reference), saved as checkpoints, loaded by the program's own
+        reference: the appearance network's on the crops of that frame's
+        true boxes), saved as checkpoints, loaded by the program's own
         loaders; then the injection of the scenes' truth."""
         from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
 
@@ -106,6 +112,16 @@ class Run:
             kp = weights.draw(hrnet.layout(cfg["keypoints"]), self.sub_seed(3), dev)
             x = preprocess.keypoint_input(torch.from_numpy(frame).to(dev), cfg["keypoints"]["input_hw"], geom)
             yolov8.calibrate(hrnet.HRNet(kp, cfg["keypoints"]), x)
+            if self.reid is not None:
+                reid = weights.draw(osnet.layout(self.reid), self.sub_seed(6), dev)
+                b, _, _, v = oracle_detections_at(self.scenes[0], 0, self.program_config().detector.max_detections)
+                boxes = preprocess.canvas_boxes(torch.from_numpy(b[v]).to(dev), geom)
+                raw = torch.from_numpy(frame).to(dev)
+                pix = preprocess.working_canvas(raw, geom) if geom is not None else raw
+                x = preprocess.reid_input(pix, boxes[None], self.reid["input_hw"])
+                yolov8.calibrate(osnet.OSNet(reid, self.reid), x)
+                self.reid_sd = weights.for_saving(reid, dtype=torch.float32)
+                del reid
         self.det_sd, self.kp_sd = weights.for_saving(det, weights.dfl_projection()), weights.for_saving(kp)
         del det, kp, x
         # a folder of its own under TMPDIR (weights, not a cache: nothing
@@ -114,10 +130,14 @@ class Run:
         paths = {"detector": os.path.join(folder, "detector.pt"), "keypoints": os.path.join(folder, "keypoints.pth")}
         torch.save(self.det_sd, paths["detector"])
         torch.save(self.kp_sd, paths["keypoints"])
+        if self.reid is not None:
+            # a torchreid state dict, as the published osnet_x0_25_msmt17.pt
+            paths["reid"] = os.path.join(folder, "reid.pt")
+            torch.save(self.reid_sd, paths["reid"])
         try:
             self.model = CoordinateModel(config=self.program_config(), detector_checkpoint=paths["detector"],
-                                         keypoint_checkpoint=paths["keypoints"], seed=self.sub_seed(4) % (1 << 31),
-                                         device=dev)
+                                         keypoint_checkpoint=paths["keypoints"], reid_checkpoint=paths.get("reid"),
+                                         seed=self.sub_seed(4) % (1 << 31), device=dev)
         finally:
             for p in paths.values():
                 os.remove(p)
@@ -139,14 +159,21 @@ class Run:
 
     def work(self) -> dict:
         """FLOPs a frame of each network at the cell's inputs, counted from
-        the published layer lists."""
+        the published layer lists; the appearance network's (where the
+        configuration has one) for every slot the program embeds, which is
+        the first ``TrackerConfig.reid_slots`` of every frame, detected or
+        not."""
         cfg, t = self.config, self.traffic
         size = cfg["program"]["detector"]["image_size"]
         geom = preprocess.geometry((t["height"], t["width"]), size, cfg["keypoints"]["input_hw"])
         det_hw = (geom["canvas_h"], geom["canvas_w"]) if geom else (size, size)
-        return {"detector_flops": flops.detector(cfg["detector"], det_hw),
-                "keypoint_flops": flops.keypoints(cfg["keypoints"], cfg["keypoints"]["input_hw"]),
-                "geometry": geom}
+        out = {"detector_flops": flops.detector(cfg["detector"], det_hw),
+               "keypoint_flops": flops.keypoints(cfg["keypoints"], cfg["keypoints"]["input_hw"]),
+               "geometry": geom}
+        if self.reid is not None:
+            pc = self.program_config()
+            out["reid_flops"] = flops.reid(self.reid) * min(pc.tracker.reid_slots, pc.detector.max_detections)
+        return out
 
     def flow_least_s(self, geom) -> float:
         """The least time of one flow launch at the published peaks: the
@@ -167,11 +194,9 @@ class Run:
     def judge(self, result: Result) -> dict:
         """The numbers compared, each with its limit (``benchmark/limits``)."""
         t0 = time.monotonic()
-        det_samples, kp_samples = self.inj.samples()
+        det_samples, kp_samples, reid_samples = self.inj.samples()
         hw = (self.traffic["height"], self.traffic["width"])
-        nets = judge.Networks(self.config, weights.as_loaded(self.det_sd, self.device),
-                              weights.as_loaded(self.kp_sd, self.device), hw, self.device)
-        frames_of = lambda fr: np.stack([self.scenes[tb].frames[r] for tb, r in fr])  # noqa: E731
+        nets, frames_of = self.networks(), self.frames_of
         det_gap = max(judge.detector_gap(nets, *s["out"], frames_of(s["frames"])) for s in det_samples)
         kp_gap = max(judge.keypoint_gap(nets, s["out"], frames_of(s["frames"])) for s in kp_samples)
         printed = [(fr, tb, r) for fr, tb, r in result.frames if fr is not None]
@@ -182,9 +207,13 @@ class Run:
         values = {"detector_gap": det_gap, "keypoint_gap": kp_gap, "pitch_gap_mean_m": pitch_mean,
                   "track_miss_share": miss, "object_miss_share": lost}
         said = (f"{len(det_samples)} detector calls ({sum(len(s['frames']) for s in det_samples)} frames), "
-                f"{len(kp_samples)} keypoint calls ({sum(len(s['frames']) for s in kp_samples)} frames), "
-                f"{len(printed)} of {len(result.frames)} frames printed, {n_obj} objects ({pitch_max} m the largest "
-                f"pitch gap), {n_players} tracked players, {n_true} true objects")
+                f"{len(kp_samples)} keypoint calls ({sum(len(s['frames']) for s in kp_samples)} frames), ")
+        if self.reid is not None:
+            values["reid_gap"] = max(judge.reid_gap(nets, s["out"], frames_of(s["frames"]), s["boxes"])
+                                     for s in reid_samples)
+            said += f"{len(reid_samples)} embed calls ({sum(s['out'].shape[:2].numel() for s in reid_samples)} crops), "
+        said += (f"{len(printed)} of {len(result.frames)} frames printed, {n_obj} objects ({pitch_max} m the largest "
+                 f"pitch gap), {n_players} tracked players, {n_true} true objects")
         if result.segments is not None:
             values["table_miss_share"], n_rec = judge.table_miss_share(
                 [(s["records"], [self.truth_at(s["shot"], r) for r in s["rows"]]) for s in result.segments], hw)
@@ -194,6 +223,17 @@ class Run:
             said += f", {len(result.segments)} segments' tables ({n_rec} true objects, {n_ids} tracked ids)"
         diag(f"judge: {said}, {time.monotonic() - t0:.3f} s")
         return {k: {"value": v, "limit": self.limits[k]} for k, v in values.items()}
+
+    def networks(self, precision: str = "fp32") -> judge.Networks:
+        """The plain networks on the saved weights as a reader gets them."""
+        hw = (self.traffic["height"], self.traffic["width"])
+        reid = weights.as_loaded(self.reid_sd, self.device) if self.reid is not None else None
+        return judge.Networks(self.config, weights.as_loaded(self.det_sd, self.device),
+                              weights.as_loaded(self.kp_sd, self.device), hw, self.device, precision, reid)
+
+    def frames_of(self, frames: list) -> np.ndarray:
+        """The raw frames of [(shot, row)], stacked."""
+        return np.stack([self.scenes[tb].frames[r] for tb, r in frames])
 
     def truth_at(self, shot: int, row: int) -> tuple:
         """(true feet (P, 2), true pitch positions (P, 2), ball image (2,),

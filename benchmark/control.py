@@ -8,9 +8,10 @@ a short window at the cell's own load), judged as a run is judged: the
 program's readings.  For a seed of ``--control-seeds`` the same run's
 samples are judged once more with the reference computed in float8 e4m3 in
 the program's place (the precision below the configurations' bfloat16):
-the control's readings of the two network gaps, which the limits must lie
-below, and of the pitch gap with the projection computed in bfloat16 (the
-precision below the float32 of the program's geometry).  One JSON line a seed on standard output.  The benchmark's own runs
+the control's readings of the network gaps (the appearance network's too,
+where the configuration has one), which the limits must lie below, and of
+the pitch gap with the projection computed in bfloat16 (the precision
+below the float32 of the program's geometry).  One JSON line a seed on standard output.  The benchmark's own runs
 never run this.
 """
 
@@ -27,10 +28,9 @@ import json  # noqa: E402
 import os  # noqa: E402
 import types  # noqa: E402
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark import common, run as bench_run, weights  # noqa: E402
+from benchmark import common, run as bench_run  # noqa: E402
 from benchmark.reference import judge  # noqa: E402
 
 
@@ -40,19 +40,19 @@ CONTROL_STRIDE = 10
 
 
 def control_gaps(r: common.Run, result: common.Result) -> dict:
-    """The two network gaps of the float8 reference in the program's place,
+    """The network gaps of the float8 reference in the program's place,
     on the run's own samples, and the pitch gap of the reference's
     projection computed in bfloat16 on the run's own objects."""
-    det_samples, kp_samples = r.inj.samples()
-    hw = (r.traffic["height"], r.traffic["width"])
-    det, kp = weights.as_loaded(r.det_sd, r.device), weights.as_loaded(r.kp_sd, r.device)
-    ref = judge.Networks(r.config, det, kp, hw, r.device)
-    low = judge.Networks(r.config, det, kp, hw, r.device, "fp8")
-    frames_of = lambda fr: np.stack([r.scenes[tb].frames[i] for tb, i in fr])  # noqa: E731
+    det_samples, kp_samples, reid_samples = r.inj.samples()
+    ref, low, frames_of = r.networks(), r.networks("fp8"), r.frames_of
     d = max(judge.detector_gap(ref, *low.detect(frames_of(s["frames"])), frames_of(s["frames"])) for s in det_samples)
     k = max(judge.keypoint_gap(ref, low.heatmaps(frames_of(s["frames"])), frames_of(s["frames"])) for s in kp_samples)
     frames = [(fr, r.H_ref) for fr, _, _ in result.frames[:: CONTROL_STRIDE] if fr is not None]
-    return {"detector_gap": d, "keypoint_gap": k, "pitch_gap_mean_m": judge.pitch_gaps_m(frames, control=True)[0]}
+    out = {"detector_gap": d, "keypoint_gap": k, "pitch_gap_mean_m": judge.pitch_gaps_m(frames, control=True)[0]}
+    if r.reid is not None:
+        out["reid_gap"] = max(judge.reid_gap(ref, low.embed(frames_of(s["frames"]), s["boxes"]), frames_of(s["frames"]),
+                                             s["boxes"]) for s in reid_samples)
+    return out
 
 
 def main(argv=None) -> int:

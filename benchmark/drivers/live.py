@@ -10,23 +10,31 @@ opens, whatever the program is doing.  Segments due before the window's
 end are offered; a segment's latency is the time from its due time to its
 ``ClipResult``, or to the window's end if it has none by then.
 
-``serve_clips`` asks for the next segment before it perceives the current
-one; the generator then waits until that segment is due, and the wait is
-the program's, inside the latency.  The generator's own lateness (a
-segment handed later than both its due time and the program's request)
-is reported on standard error.  With ``--trace 1`` the window's last
-``trace_segments`` segments run under the profiler, until the last result.
+The feed is a generator, with no length, so ``serve_clips`` takes it in
+the reference's order: it perceives a segment as soon as it comes, yields
+its result when the Processor's job ends, and only then asks for the next
+one (it asks ahead, before perceiving the current one, only over clips
+that have a length).  The generator then waits until that segment is due.
+The generator's own lateness (a segment handed later than both its due
+time and the program's request) is reported on standard error.  With
+``--trace 1`` the window's last ``trace_segments`` segments run under the
+profiler, until the last result.
 
 Every segment due is judged once the window has closed: its coordinates,
 and its Processor table as the long-format records and ``team_mapping``
 (:func:`benchmark.reference.judge.table_miss_share`, ``team_error_share``).
 A segment with no result, or whose coordinates or table lack one of its
-frames, counts as failed.
+frames, counts as failed.  Until then the driver keeps what the judge
+reads of each result pickled (:func:`kept`): bytes, which the
+interpreter's collector does not walk.  Kept as objects, a window's
+results would double the heap that the program's own full collections
+traverse inside the window.
 """
 
 from __future__ import annotations
 
 import math
+import pickle
 import threading
 import time
 from types import SimpleNamespace
@@ -34,6 +42,14 @@ from types import SimpleNamespace
 from benchmark.common import Result, diag, percentile
 from benchmark.load import OpenLoop, latencies
 from benchmark.trace import Stretch, Tracer
+
+
+def kept(res) -> bytes:
+    """What the judge reads of a ``ClipResult``: (coordinates, the table's
+    frame index, empty where the table is, the long-format records,
+    ``team_mapping``), pickled."""
+    index = [] if res.table.empty else list(res.table.index)
+    return pickle.dumps((res.coordinates, index, res.formatted, res.team_mapping), protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def run(r) -> Result:
@@ -115,10 +131,13 @@ def run(r) -> Result:
             yield frames
 
     finish, results = [], []
+    keeping = 0.0
     try:
         for res in serve(clips()):
             finish.append(time.perf_counter())
-            results.append(res)
+            results.append(kept(res))
+            del res  # now, not once the next segment is perceived
+            keeping += time.perf_counter() - finish[-1]
             if tracer is not None and len(finish) == n_due:
                 tracer.stop()
     finally:
@@ -130,7 +149,10 @@ def run(r) -> Result:
     latency = latencies(loop.due, finish, t_close)
     done = sum(1 for f in finish if f <= t_close)
     diag(f"window: {n_due} segments due, {done} done by the window's end, generator late by at most {loop.late:.6f} s, "
-         f"latency median {percentile(latency, 50):.4f} s")
+         f"latency median {percentile(latency, 50):.4f} s, 90th percentile {percentile(latency, 90):.4f} s, "
+         f"95th {percentile(latency, 95):.4f} s, largest {max(latency):.4f} s; the results kept in "
+         f"{keeping:.4f} s")
+    results = [pickle.loads(b) for b in results]
 
     # every frame of every segment due is judged, and a segment whose
     # result lacks a frame, in its coordinates or its table, has failed
@@ -138,18 +160,17 @@ def run(r) -> Result:
     for i in range(n_due):
         m, start, _ = segment(i)
         res = results[i] if i < len(results) else None
-        coords = res.coordinates if res is not None else {}
+        coords, index, formatted, mapping = res if res is not None else ({}, [], [], {})
         rows = [(start + g) % shot for g in range(seg)]
         frames = [coords.get(g) for g in range(seg)]
         records = [None] * seg
-        if res is not None and not res.table.empty:
-            for g, rec in zip(res.table.index, res.formatted):
-                if 0 <= int(g) < seg:
-                    records[int(g)] = rec
+        for g, rec in zip(index, formatted):
+            if 0 <= int(g) < seg:
+                records[int(g)] = rec
         failed += any(f is None for f in frames) or any(r is None for r in records)
         judged.extend((fr, m, row) for fr, row in zip(frames, rows))
         segments.append({"shot": m, "rows": rows, "frames": frames, "records": records,
-                         "mapping": res.team_mapping if res is not None else {}})
+                         "mapping": mapping})
     ctx = SimpleNamespace(stretch=None, **r.work())
     ctx.service_s = [finish[i] - starts[i] for i in range(min(len(finish), len(starts)))]
     ctx.processor_s, ctx.processor_frames = proc["s"], proc["frames"]

@@ -27,7 +27,10 @@ plants the same faults at a small size on the CPU.
 - ``processor_half``: the Processor builds its table from the first half
   of a segment's frames only;
 - ``teams_swapped``: every second player id of the Processor's
-  ``team_mapping`` put on the other team.
+  ``team_mapping`` put on the other team;
+- ``crops_shifted`` (configurations with an appearance network): each
+  slot's ReID crop taken from the next slot's box, where the program
+  crops.
 
 The cells run on one card, so no exchange between cards can be left out.
 """
@@ -179,17 +182,28 @@ def teams_swapped():
     return _patched(Processor, "_finish_team_mapping", make)
 
 
+def crops_shifted():
+    from eagle_tpu_torch.pipeline import coordinate_model
+
+    def make(real):
+        return lambda model, frames, boxes: real(model, frames, boxes.roll(-1, dims=1))
+
+    return _patched(coordinate_model, "embed_boxes", make)
+
+
 #: fault -> the number it must break
 FAULTS = {"state_unchanged": "pitch_gap_mean_m", "half_batch": "detector_gap", "answer_altered": "pitch_gap_mean_m",
           "boxes_altered": "track_miss_share", "heatmaps_altered": "keypoint_gap",
           "objects_dropped": "object_miss_share", "frames_dropped": "object_miss_share",
-          "processor_half": "table_miss_share", "teams_swapped": "team_error_share"}
+          "processor_half": "table_miss_share", "teams_swapped": "team_error_share", "crops_shifted": "reid_gap"}
 #: faults that only some drivers can have, by driver
 ONLY = {"frames_dropped": ("stream",), "processor_half": ("live",), "teams_swapped": ("live",)}
+#: faults that only a configuration with an appearance network can have
+REID_ONLY = ("crops_shifted",)
 
 
-def applies(fault: str, driver: str) -> bool:
-    return driver in ONLY.get(fault, (driver,))
+def applies(fault: str, driver: str, config: dict) -> bool:
+    return driver in ONLY.get(fault, (driver,)) and ("reid" in config or fault not in REID_ONLY)
 
 
 def main(argv=None) -> int:
@@ -205,7 +219,7 @@ def main(argv=None) -> int:
         os.environ[k] = v
     _, cell, config, traffic = bench_run.spec_of(args.workload)
     driver = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
-    for fault in [f for f in args.faults.split(",") if applies(f, traffic["driver"])]:
+    for fault in [f for f in args.faults.split(",") if applies(f, traffic["driver"], config)]:
         for seed in [int(s) for s in args.seeds.split(",")]:
             ns = types.SimpleNamespace(seed=seed, seconds=args.seconds, trace=0)
             r = common.Run(ns, cell, config, traffic, torch.device("cuda", 0), time.monotonic())

@@ -9,6 +9,12 @@ nothing of the program).
   detector the larger of its box sides (each box minus its anchor centre,
   the part the network computes) and its class scores; for the keypoint
   network its heatmaps.
+- ``reid_gap`` (configurations with an appearance network): the
+  program's real embeddings of the sampled embed calls, each slot it
+  embedded, against the float32 OSNet (TF32 off) on the crops of the same
+  boxes, the crops worked out again from the raw frames
+  (:func:`benchmark.reference.preprocess.reid_input`); the gap over the
+  spread of the reference's embeddings.
 - ``pitch_gap_mean_m``: every tracked object's pitch position the entry
   yielded in the window, judged against the homography that the injected
   keypoints determine (:func:`fit_homography`, float64): the distance in
@@ -48,7 +54,7 @@ import contextlib
 import numpy as np
 import torch
 
-from benchmark.reference import hrnet, preprocess, yolov8
+from benchmark.reference import hrnet, osnet, preprocess, yolov8
 from benchmark.reference.ops import Ops
 
 #: frames a reference forward takes at once (memory, not arithmetic)
@@ -86,16 +92,21 @@ def _gap(prog: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 class Networks:
-    """The two plain networks of a configuration on ``device``, fed raw
-    frames; ``precision`` "fp32" is the reference, "fp8" the control."""
+    """The plain networks of a configuration on ``device`` (the appearance
+    network where ``reid_sd`` is given), fed raw frames; ``precision``
+    "fp32" is the reference, "fp8" the control."""
 
-    def __init__(self, cfg: dict, det_sd: dict, kp_sd: dict, frame_hw, device, precision: str = "fp32"):
+    def __init__(self, cfg: dict, det_sd: dict, kp_sd: dict, frame_hw, device, precision: str = "fp32",
+                 reid_sd: dict | None = None):
         ops = Ops(precision)
-        self.det_cfg, self.kp_cfg = cfg["detector"], cfg["keypoints"]
+        self.det_cfg, self.kp_cfg, self.reid_cfg = cfg["detector"], cfg["keypoints"], cfg.get("reid")
         self.size = cfg["program"]["detector"]["image_size"]
         self.geom = preprocess.geometry(frame_hw, self.size, self.kp_cfg["input_hw"])
         self.det = yolov8.YOLOv8({k: v.to(device) for k, v in det_sd.items()}, self.det_cfg, ops)
         self.kp = hrnet.HRNet({k: v.to(device) for k, v in kp_sd.items()}, self.kp_cfg, ops)
+        self.reid = None
+        if reid_sd is not None:
+            self.reid = osnet.OSNet({k: v.to(device) for k, v in reid_sd.items()}, self.reid_cfg, ops)
         self.device = device
 
     def detector_input_hw(self) -> tuple[int, int]:
@@ -119,6 +130,28 @@ class Networks:
                 x = torch.from_numpy(np.ascontiguousarray(frames[i : i + CHUNK])).to(self.device)
                 outs.append(self.kp(preprocess.keypoint_input(x, self.kp_cfg["input_hw"], self.geom)))
         return torch.cat(outs)
+
+    @torch.no_grad()
+    def embed(self, frames: np.ndarray, boxes: torch.Tensor) -> torch.Tensor:
+        """(N, K, E) embeddings of the crops at ``boxes`` (N, K, 4), given in
+        the pixels of the frames the program crops from: the working canvas
+        of the raw ``frames`` where the cell has one, else the frames."""
+        outs = []
+        with float32_exact():
+            for i in range(0, len(frames), CHUNK):
+                x = torch.from_numpy(np.ascontiguousarray(frames[i : i + CHUNK])).to(self.device)
+                pix = preprocess.working_canvas(x, self.geom) if self.geom is not None else x
+                b = boxes[i : i + CHUNK].to(self.device)
+                y = self.reid(preprocess.reid_input(pix, b, self.reid_cfg["input_hw"]))
+                outs.append(y.view(*b.shape[:2], -1))
+        return torch.cat(outs)
+
+
+def reid_gap(nets: Networks, prog_embeddings, frames: np.ndarray, boxes, ref=None) -> float:
+    """The gap of one embed call's embeddings (N, K, E) of the crops at
+    ``boxes``; ``ref`` the reference's when already computed."""
+    emb = ref if ref is not None else nets.embed(frames, boxes)
+    return _gap(prog_embeddings.to(emb.device), emb)
 
 
 def detector_gap(nets: Networks, prog_boxes, prog_scores, frames: np.ndarray, ref=None) -> float:

@@ -3,8 +3,10 @@
 ``Ops()`` is float32 (the caller turns TF32 off), ``Ops("fp8")`` rounds every
 convolution's input and weight to float8 e4m3 with one scale a tensor (the
 precision below the configurations' bfloat16, for the control), and
-:class:`FlopCounter` counts 2 x the multiply-adds of each convolution from
-the shapes alone (on the ``meta`` device, so no arithmetic runs).
+:class:`FlopCounter` counts 2 x the multiply-adds of each convolution
+(grouped ones by their own weights' shapes) and of each fully connected
+product from the shapes alone (on the ``meta`` device, so no arithmetic
+runs).
 """
 
 from __future__ import annotations
@@ -30,21 +32,33 @@ class Ops:
             raise ValueError(f"precision must be 'fp32' or 'fp8', not {precision!r}")
         self.precision = precision
 
-    def conv(self, x, w, b=None, stride: int = 1, padding: int = 0):
+    def conv(self, x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
         if self.precision == "fp8":
             x, w = fp8_round(x), fp8_round(w)
-        return F.conv2d(x, w, b, stride=stride, padding=padding)
+        return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
+
+    def linear(self, x, w, b=None):
+        if self.precision == "fp8":
+            x, w = fp8_round(x), fp8_round(w)
+        return F.linear(x, w, b)
 
 
 class FlopCounter(Ops):
-    """Counts ``flops`` (2 x multiply-adds) of every convolution called."""
+    """Counts ``flops`` (2 x multiply-adds) of every convolution and fully
+    connected product called."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
 
-    def conv(self, x, w, b=None, stride: int = 1, padding: int = 0):
-        y = F.conv2d(x, w, b, stride=stride, padding=padding)
+    def conv(self, x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
+        y = F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
         n, cout, ho, wo = y.shape
+        # w.shape[1] is the inputs of one group: each output reads only those
         self.flops += 2 * n * cout * w.shape[1] * w.shape[2] * w.shape[3] * ho * wo
+        return y
+
+    def linear(self, x, w, b=None):
+        y = F.linear(x, w, b)
+        self.flops += 2 * x.shape[0] * w.shape[0] * w.shape[1]
         return y

@@ -12,6 +12,10 @@ derives them (plain PyTorch, imports nothing of the program).
 - The raw path: the detector's square letterbox (half-pixel bilinear
   resize onto gray 114) and the keypoint network's half-pixel bilinear
   resize, both in float32 from the raw BGR frames.
+- The appearance network's crops (:func:`reid_input`): each box of the
+  frames it is given (the working canvas or the raw frames, with the boxes
+  in their pixels) resampled to the network's input by bilinear samples at
+  the positions the program documents, then RGB and ImageNet-normalised.
 
 Only the geometries of the benchmark's cells are implemented: a frame
 twice the canvas image in each axis on the working path.
@@ -45,6 +49,17 @@ def geometry(frame_hw, size: int, keypoint_hw, stride: int = 32) -> dict | None:
     ph, pw = (-ih) % stride, (-iw) % stride
     return {"gain": gain, "img_h": ih, "img_w": iw, "pad_y": int(round(ph / 2 - 0.1)),
             "pad_x": int(round(pw / 2 - 0.1)), "canvas_h": ih + ph, "canvas_w": iw + pw}
+
+
+def canvas_boxes(boxes: torch.Tensor, geom: dict | None) -> torch.Tensor:
+    """xyxy ``boxes`` in original pixels -> the working canvas's (``x *
+    gain + pad``, each step rounded to float32), or as they are without
+    one (``geom`` None)."""
+    if geom is None:
+        return boxes
+    gain = torch.tensor(geom["gain"], dtype=torch.float32, device=boxes.device)
+    pad = torch.tensor([geom["pad_x"], geom["pad_y"]] * 2, dtype=torch.float32, device=boxes.device)
+    return boxes * gain + pad
 
 
 def _planes(bgr: torch.Tensor):
@@ -134,4 +149,37 @@ def keypoint_input(bgr: torch.Tensor, input_hw, geom: dict | None) -> torch.Tens
     x = _resize(img.flip(-1), tuple(input_hw))
     mean = torch.tensor(IMAGENET_MEAN, device=x.device)[:, None, None] * 255.0
     std = torch.tensor(IMAGENET_STD, device=x.device)[:, None, None] * 255.0
+    return (x - mean) / std
+
+
+def reid_input(frames: torch.Tensor, boxes: torch.Tensor, input_hw) -> torch.Tensor:
+    """(N * K, 3, gh, gw) ImageNet-normalised RGB crops of (N, H, W, 3)
+    uint8 BGR ``frames`` at (N, K, 4) xyxy ``boxes`` in their pixels, frame
+    by frame, box by box.  Output pixel (i, j) of a box samples the source
+    at ``y1 + (i + 0.5) / gh * (y2 - y1) - 0.5`` (likewise x), the product
+    and sum rounded once to float32 (as slicing ``crop[y1:y2, x1:x2]`` and
+    resizing half-pixel would), clipped to [0, H - 1.001] and [0, W -
+    1.001], bilinear between the four pixels around it, in float32."""
+    gh, gw = input_hw
+    n, h, w, _ = frames.shape
+    k = boxes.shape[1]
+    dev = frames.device
+    b = boxes.reshape(n * k, 4).to(torch.float32)
+
+    def along(g, lo, hi, limit):
+        t = (torch.arange(g, device=dev, dtype=torch.float32) + 0.5) / g
+        pos = (t[None, :].double() * (hi - lo)[:, None].double() + lo[:, None].double()).to(torch.float32) - 0.5
+        return torch.clamp(pos, 0.0, limit - 1.001)
+
+    ys, xs = along(gh, b[:, 1], b[:, 3], h), along(gw, b[:, 0], b[:, 2], w)
+    y0, x0 = torch.floor(ys).to(torch.int64), torch.floor(xs).to(torch.int64)
+    fy, fx = (ys - y0)[:, :, None, None], (xs - x0)[:, None, :, None]
+    f = torch.arange(n, device=dev).repeat_interleave(k)[:, None, None]
+    yy, xx = y0[:, :, None], x0[:, None, :]
+    img = frames.to(torch.float32)
+    crop = (img[f, yy, xx] * (1 - fy) * (1 - fx) + img[f, yy, xx + 1] * (1 - fy) * fx
+            + img[f, yy + 1, xx] * fy * (1 - fx) + img[f, yy + 1, xx + 1] * fy * fx)
+    x = crop.flip(-1).permute(0, 3, 1, 2)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)[:, None, None] * 255.0
+    std = torch.tensor(IMAGENET_STD, device=dev)[:, None, None] * 255.0
     return (x - mean) / std

@@ -8,11 +8,12 @@ a configuration (``benchmark/configs/<name>.json``) and a traffic mix
 (``benchmark/drivers/<driver>.py``) that offers it; each per-layer metric
 is read by ``benchmark/metrics/<metric>.py``.  A run:
 
-1. draws both networks' weights from ``--seed`` on the card in their
+1. draws the networks' weights from ``--seed`` on the card in their
    published layouts, saves them under ``TMPDIR`` and hands the files to
    the program's loaders (``load_detector_params`` /
-   ``load_keypoint_params`` through ``CoordinateModel``), as a user with
-   trained weights would;
+   ``load_keypoint_params``, and for a configuration with an appearance
+   network ``osnet_from_torch``, through ``CoordinateModel``), as a user
+   with trained weights would;
 2. renders the traffic's scenes from the seed, warms up the cell's own
    shapes and measures for ``--seconds``;
 3. judges what the window produced against the plain reference

@@ -104,7 +104,8 @@ def test_the_window_counts_a_stall_that_one_repetition_would_hide():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    code = ("import sys, benchmark.reference.judge, benchmark.work.flops, benchmark.work.lk_flow; "
+    code = ("import sys, benchmark.reference.judge, benchmark.reference.osnet, benchmark.work.flops, "
+            "benchmark.work.lk_flow; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True).stdout
     mods = set(eval(out))

@@ -4,6 +4,7 @@ judge, on smaller frames and networks of the same architecture."""
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -31,6 +32,17 @@ CELLS = {
 }
 KEYPOINT_HW = (96, 160)
 THREADS = 2
+#: test-only cells with the tracker's appearance network: {cell: (the cell
+#: whose configuration, traffic and limits it extends, the appearance
+#: network)}; OSNet-x0.25, Eagle's shipped ReID, on ``REID_SLOTS`` slots
+#: and 16-frame blocks, so that a run stays short on the CPU
+REID_CELLS = {"l960.reid": ("l960.match1080", {"family": "osnet", "stage_widths": [16, 64, 96, 128],
+                                               "feature_dim": 512, "input_hw": [256, 128]})}
+REID_SLOTS = 3
+#: ``reid_gap``'s limit at this size, between what 5 seeds read on the
+#: CPU: sound runs 0.135-0.218, the float8 control 0.753-1.073, the crops
+#: shifted a slot 1.285-1.399
+REID_GAP_LIMIT = 0.5
 
 
 def driver_of(cell: str) -> str:
@@ -45,19 +57,30 @@ def tiny(cell: str, seed: int, seconds: float, device="cpu"):
         # a few threads a run: runs side by side (pytest -n) otherwise
         # oversubscribe the cores and the serving threads crawl
         torch.set_num_threads(THREADS)
-    conf, traffic, size, (w, h) = CELLS[cell]
+    base, reid = REID_CELLS.get(cell, (cell, None))
+    conf, traffic, size, (w, h) = CELLS[base]
     cfg = copy.deepcopy(load("configs", conf))
     cfg["detector"].update(depth_multiple=0.33, width_multiple=0.25, max_channels=1024)
     cfg["program"]["detector"] = {"variant": "medium", "image_size": size}
     cfg["program"]["keypoint"] = {"input_hw": KEYPOINT_HW}
     cfg["keypoints"]["input_hw"] = list(KEYPOINT_HW)
+    if reid is not None:
+        cfg["reid"] = reid
+        cfg["program"]["tracker"] = {"use_appearance": True, "embedder": "osnet", "reid_slots": REID_SLOTS}
     tr = dict(load("traffic", traffic), width=w, height=h, players=8)
-    if tr["driver"] == "stream":
+    if reid is not None:
+        tr.update(shot_frames=16, segment_frames=16, warmup_blocks=1)
+    elif tr["driver"] == "stream":
         tr.update(shot_frames=48, segment_frames=48, warmup_blocks=1)
     else:
         tr.update(matches=2, shot_frames=10, segment_frames=5, warmup_rounds=1)
     args = types.SimpleNamespace(seed=seed, seconds=seconds, trace=0)
-    r = common.Run(args, {"name": cell, "chips": 1}, cfg, tr, torch.device(device), time.monotonic())
+    r = common.Run(args, {"name": base, "chips": 1}, cfg, tr, torch.device(device), time.monotonic())
+    if reid is not None:
+        r.limits = dict(r.limits, reid_gap=REID_GAP_LIMIT)
+        # 16-frame chunks, so that the stream's blocks are 16 frames
+        program_config = r.program_config
+        r.program_config = lambda: dataclasses.replace(program_config(), chunk_frames=16)
     return r, (stream if tr["driver"] == "stream" else live)
 
 

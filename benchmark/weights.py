@@ -1,15 +1,17 @@
 """Seeded weights in the published layouts, made on the device.
 
 The benchmark draws every tensor of a state dict (an ultralytics YOLOv8
-``model.*`` dict, Eagle's HRNet ``KeypointModel`` dict) from ``--seed`` with
-one ``torch.Generator`` on the card, in one call a kind of tensor, then
-saves the dicts as the published checkpoints are saved (``torch.save`` of a
-state dict, float16 as ultralytics ships its weights) so that the program
-loads them through its public loaders, as it would trained weights.
+``model.*`` dict, Eagle's HRNet ``KeypointModel`` dict, a torchreid OSNet
+dict) from ``--seed`` with one ``torch.Generator`` on the card, in one call
+a kind of tensor, then saves the dicts as the published checkpoints are
+saved (``torch.save`` of a state dict; float16 as ultralytics ships its
+weights, float32 as torchreid does) so that the program loads them through
+its public loaders, as it would trained weights.
 
 The draws keep activations near unit scale through the whole depth, so
 that the outputs the judge compares vary over the image instead of
-saturating: convolutions are He-normal; BatchNorm's affine terms are
+saturating: convolutions and fully connected layers are He-normal over
+their fan-in; biases are drawn small; BatchNorm's affine terms are
 drawn around the identity, and its running statistics are then set from
 one frame by the float32 reference (``reference.yolov8.calibrate``); the
 BatchNorm that closes a residual branch or feeds a sum of branches is
@@ -37,6 +39,7 @@ _DAMPED = (
     re.compile(r"layer1\.\d+\.bn3$"),  # HRNet Bottleneck's last conv
     re.compile(r"branches\.\d+\.\d+\.bn2$"),  # HRNet BasicBlock's last conv
     re.compile(r"fuse_layers\.\d+\.\d+(\.\d+)?\.1$"),  # HRNet fusion terms
+    re.compile(r"^conv[234]\.\d+\.conv3\.bn$"),  # OSNet block's last conv (its shortcut's is not damped)
 )
 
 
@@ -51,7 +54,9 @@ def draw(layout: dict, seed: int, device) -> dict:
     kinds: dict[str, list[str]] = {}
     for key in layout:
         field = key.rsplit(".", 1)[1]
-        kind = "conv" if field == "weight" and len(layout[key]) == 4 else field
+        kind = field
+        if field == "weight" and len(layout[key]) in (2, 4):
+            kind = "conv" if len(layout[key]) == 4 else "linear"
         kinds.setdefault(kind, []).append(key)
     out = {}
     for kind, keys in kinds.items():
@@ -69,6 +74,8 @@ def draw(layout: dict, seed: int, device) -> dict:
             v.mul_(math.sqrt(2.0 / (shape[1] * shape[2] * shape[3])))
             if _is_head(prefix):
                 v.mul_(math.sqrt(0.5))
+        elif len(shape) == 2 and field == "weight":
+            v.mul_(math.sqrt(2.0 / shape[1]))
         elif field == "weight":  # BatchNorm's scale
             v.mul_(0.1).add_(DAMP if any(p.search(prefix) for p in _DAMPED) else 1.0)
         elif field in ("bias", "running_mean"):
@@ -84,10 +91,10 @@ def _is_head(prefix: str) -> bool:
     return prefix == "unnormalized_model.1" or re.search(r"\.cv[23]\.\d+\.2$", prefix) is not None
 
 
-def for_saving(sd: dict, extra: dict | None = None) -> dict:
-    """The state dict as a checkpoint holds it: float16 on the host, with
+def for_saving(sd: dict, extra: dict | None = None, dtype=SAVE_DTYPE) -> dict:
+    """The state dict as a checkpoint holds it: ``dtype`` on the host, with
     BatchNorm's ``num_batches_tracked`` and ``extra`` entries."""
-    out = {k: v.to(SAVE_DTYPE).cpu() for k, v in sd.items()}
+    out = {k: v.to(dtype).cpu() for k, v in sd.items()}
     for k in sd:
         if k.endswith(".running_var"):
             out[k[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
@@ -97,8 +104,8 @@ def for_saving(sd: dict, extra: dict | None = None) -> dict:
 
 def as_loaded(sd: dict, device) -> dict:
     """What a reader of the saved checkpoint gets, in float32 on
-    ``device``: the float16 values, widened."""
-    return {k: v.to(SAVE_DTYPE).to(device=device, dtype=torch.float32) for k, v in sd.items()}
+    ``device``: the saved values (``num_batches_tracked`` aside), widened."""
+    return {k: v.to(device=device, dtype=torch.float32) for k, v in sd.items() if v.is_floating_point()}
 
 
 def dfl_projection() -> dict:

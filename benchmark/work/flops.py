@@ -1,12 +1,13 @@
 """FLOPs of the networks' forwards, 2 x the multiply-adds of every
-convolution, counted by running the benchmark's plain references on the
-``meta`` device (shapes only) at the input a cell's frames give."""
+convolution and fully connected product, counted by running the
+benchmark's plain references on the ``meta`` device (shapes only) at the
+input a cell's frames give."""
 
 from __future__ import annotations
 
 import torch
 
-from benchmark.reference import hrnet, yolov8
+from benchmark.reference import hrnet, osnet, yolov8
 from benchmark.reference.ops import FlopCounter
 
 
@@ -25,4 +26,11 @@ def keypoints(cfg: dict, input_hw) -> int:
     """FLOPs of one frame through HRNet ``cfg`` at ``input_hw``."""
     ops = FlopCounter()
     hrnet.HRNet(_meta(hrnet.layout(cfg)), cfg, ops)(torch.empty(1, 3, *input_hw, device="meta"))
+    return ops.flops
+
+
+def reid(cfg: dict) -> int:
+    """FLOPs of one crop through OSNet ``cfg`` at its ``input_hw``."""
+    ops = FlopCounter()
+    osnet.OSNet(_meta(osnet.layout(cfg)), cfg, ops)(torch.empty(1, 3, *cfg["input_hw"], device="meta"))
     return ops.flops
