@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from eagle_tpu_torch.models.layers import Conv, ConvBN, init_normal_
+from eagle_tpu_torch.utils import device_constant
 
 # stage spec: (num_modules, num_branches, blocks_per_branch, channels)
 STAGE2 = (1, 2, 4, (48, 96))
@@ -49,13 +50,17 @@ def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
 
 def upsample_align_corners(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear align_corners=True resize of NCHW via two interpolation
-    products, computed in the activation dtype."""
+    products, computed in the activation dtype; the two matrices are
+    uploaded once a device and dtype."""
     Ho, Wo = out_hw
     Hi, Wi = x.shape[-2:]
     if (Hi, Wi) == (Ho, Wo):
         return x
-    Mh = torch.from_numpy(_interp_matrix(Ho, Hi)).to(x.device, x.dtype)
-    Mw = torch.from_numpy(_interp_matrix(Wo, Wi)).to(x.device, x.dtype)
+    Mh, Mw = (
+        device_constant(("hrnet_interp", o, i, str(x.device), x.dtype),
+                        lambda o=o, i=i: torch.from_numpy(_interp_matrix(o, i)).to(x.device, x.dtype))
+        for o, i in ((Ho, Hi), (Wo, Wi))
+    )
     return torch.matmul(torch.matmul(Mh, x), Mw.T)
 
 

@@ -17,9 +17,37 @@ import torch.nn.functional as F
 BN_EPS = 1e-5  # torch BatchNorm2d default
 
 
+def cached(module: nn.Module, name: str, dtype: torch.dtype, sources: tuple, make):
+    """``make()`` made once and kept on ``module`` under (``name``,
+    ``dtype``) while its ``sources`` tensors are the same tensors with the
+    same storage and version: a weight cast to the activation dtype, a
+    folded BatchNorm.  Each forward of a network would otherwise launch
+    these small kernels again, and the host's launches are what the card
+    waits for.  With autograd on, or while a CUDA graph is being
+    captured, nothing is kept and ``make()`` runs as it is."""
+    if torch.is_grad_enabled() or (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        return make()
+    key = [(t.data_ptr(), t._version) for t in sources]
+    store = module.__dict__.setdefault("_cached", {})
+    hit = store.get((name, dtype))
+    if hit is not None and hit[1] == key and all(a is b for a, b in zip(hit[0], sources)):
+        return hit[2]
+    value = make()
+    store[(name, dtype)] = (sources, key, value)
+    return value
+
+
+def cast(module: nn.Module, name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``, kept on ``module`` (:func:`cached`)."""
+    if t.dtype == dtype:
+        return t
+    return cached(module, name, dtype, (t,), lambda: t.to(dtype))
+
+
 class BatchNorm(nn.Module):
     """Inference-mode BatchNorm2d; the scale/bias fold is computed in
-    float32 and cast to the activation dtype (as the JAX package does)."""
+    float32 and cast to the activation dtype (as the JAX package does),
+    once (:func:`cached`)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -28,12 +56,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
+    def fold(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, bias) of the fold in ``dtype``, shaped (C, 1, 1)."""
+
+        def make():
+            inv = torch.rsqrt(self.var.float() + BN_EPS)
+            g = self.scale.float()
+            scale = (g * inv).to(dtype)
+            bias = (self.bias.float() - self.mean.float() * g * inv).to(dtype)
+            return scale[:, None, None], bias[:, None, None]
+
+        return cached(self, "fold", dtype, (self.scale, self.bias, self.mean, self.var), make)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var.float() + BN_EPS)
-        g = self.scale.float()
-        scale = (g * inv).to(x.dtype)
-        bias = (self.bias.float() - self.mean.float() * g * inv).to(x.dtype)
-        return x * scale[:, None, None] + bias[:, None, None]
+        scale, bias = self.fold(x.dtype)
+        return x * scale + bias
 
 
 class ConvBN(nn.Module):
@@ -49,7 +86,7 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(F.conv2d(x, self.w.to(x.dtype), stride=self.stride, padding=self.padding))
+        y = self.bn(F.conv2d(x, cast(self, "w", self.w, x.dtype), stride=self.stride, padding=self.padding))
         if self.act == "relu":
             return F.relu(y)
         if self.act == "silu":
@@ -67,7 +104,8 @@ class Conv(nn.Module):
         self.padding = k // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.w.to(x.dtype), padding=self.padding) + self.b.to(x.dtype)[:, None, None]
+        w, b = cast(self, "w", self.w, x.dtype), cast(self, "b", self.b, x.dtype)
+        return F.conv2d(x, w, padding=self.padding) + b[:, None, None]
 
 
 def init_normal_(model: nn.Module, generator: torch.Generator, std_fn) -> nn.Module:

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from eagle_tpu_torch.models.layers import BN_EPS, BatchNorm, ConvBN
+from eagle_tpu_torch.models.layers import BN_EPS, BatchNorm, ConvBN, cast
 from eagle_tpu_torch.ops.kmeans import gather_crops
 from eagle_tpu_torch.ops.preprocess import normalize_imagenet
 
@@ -53,8 +53,8 @@ class LightConv3x3(nn.Module):
         self.bn = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.pw.to(x.dtype))
-        y = F.conv2d(y, self.dw.to(x.dtype), padding=1, groups=y.shape[1])
+        y = F.conv2d(x, cast(self, "pw", self.pw, x.dtype))
+        y = F.conv2d(y, cast(self, "dw", self.dw, x.dtype), padding=1, groups=y.shape[1])
         return F.relu(self.bn(y))
 
 
@@ -71,9 +71,10 @@ class ChannelGate(nn.Module):
         self.fc2_b = nn.Parameter(torch.zeros(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
         s = x.mean(dim=(2, 3), keepdim=True)
-        s = F.relu(F.conv2d(s, self.fc1_w.to(x.dtype)) + self.fc1_b.to(x.dtype)[:, None, None])
-        s = torch.sigmoid(F.conv2d(s, self.fc2_w.to(x.dtype)) + self.fc2_b.to(x.dtype)[:, None, None])
+        s = F.relu(F.conv2d(s, cast(self, "fc1_w", self.fc1_w, dt)) + cast(self, "fc1_b", self.fc1_b, dt)[:, None, None])
+        s = torch.sigmoid(F.conv2d(s, cast(self, "fc2_w", self.fc2_w, dt)) + cast(self, "fc2_b", self.fc2_b, dt)[:, None, None])
         return x * s
 
 
@@ -250,9 +251,42 @@ def embed_boxes(model: OSNet, frames: torch.Tensor, boxes: torch.Tensor) -> torc
     model runs in bfloat16 (as the JAX package's crops are), turned to RGB
     and ImageNet-normalised."""
     b, k = boxes.shape[:2]
-    frame_idx = torch.arange(b, device=frames.device).repeat_interleave(k)
+    frame_idx = torch.arange(b * k, device=frames.device) // k
     crops = gather_crops(frames, frame_idx, boxes.reshape(b * k, 4), grid_hw=INPUT_HW)  # BGR
     if model.use_bf16:
         crops = crops.to(torch.bfloat16)
     x = normalize_imagenet(crops.flip(-1).to(torch.float32))
     return model(x.permute(0, 3, 1, 2).contiguous()).reshape(b, k, -1)
+
+
+class CapturedEmbed:
+    """:func:`embed_boxes` of one model on one shape of frames and boxes,
+    captured as a CUDA graph.  OSNet-x0.25 runs about 1,700 kernels a call,
+    most shorter than their launch from the host; a call here is two copies
+    into the static slots and one replay.  The same kernels run on the
+    same inputs, so the embeddings are the eager call's.  The result is a
+    static slot too: the next call overwrites it."""
+
+    def __init__(self, model: OSNet, frames: torch.Tensor, boxes: torch.Tensor):
+        dev = frames.device
+        self.frames = torch.empty(frames.shape, dtype=frames.dtype, device=dev)
+        self.boxes = torch.empty(boxes.shape, dtype=boxes.dtype, device=dev)
+        self.frames.copy_(frames)
+        self.boxes.copy_(boxes)
+        # a warm-up on a side stream (cuDNN's handles and plans), then the
+        # capture, which runs nothing; thread_local: another thread's work
+        # on the card goes on meanwhile
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            embed_boxes(model, self.frames, self.boxes)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = embed_boxes(model, self.frames, self.boxes)
+
+    def __call__(self, frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        self.frames.copy_(frames)
+        self.boxes.copy_(boxes)
+        self.graph.replay()
+        return self.out

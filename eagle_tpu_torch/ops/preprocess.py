@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from eagle_tpu_torch.config import WorkGeometry
+from eagle_tpu_torch.utils import device_constant
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -55,16 +56,22 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     x = x.to(torch.float32)
     if (Hi, Wi) == (Ho, Wo):
         return x
-    Mh = torch.from_numpy(_interp_matrix_half_pixel(Ho, Hi)).to(x.device)
-    Mw = torch.from_numpy(_interp_matrix_half_pixel(Wo, Wi)).to(x.device)
+    Mh, Mw = (
+        device_constant(("resize_interp", o, i, str(x.device)),
+                        lambda o=o, i=i: torch.from_numpy(_interp_matrix_half_pixel(o, i)).to(x.device))
+        for o, i in ((Ho, Hi), (Wo, Wi))
+    )
     y = torch.einsum("oh,nhwc->nowc", Mh, x)
     return torch.einsum("ow,nhwc->nhoc", Mw, y)
 
 
 def normalize_imagenet(rgb: torch.Tensor) -> torch.Tensor:
-    """float RGB NHWC in [0, 255] -> (x - 255 mean) / (255 std)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=rgb.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=rgb.device) * 255.0
+    """float RGB NHWC in [0, 255] -> (x - 255 mean) / (255 std).  The two
+    constants are made once a device, so a captured call uploads nothing."""
+    mean, std = device_constant(("imagenet", str(rgb.device)), lambda: (
+        torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=rgb.device) * 255.0,
+        torch.tensor(IMAGENET_STD, dtype=torch.float32, device=rgb.device) * 255.0,
+    ))
     return (rgb - mean) / std
 
 

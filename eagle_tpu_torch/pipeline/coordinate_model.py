@@ -17,15 +17,16 @@ block:
   package's other modes (:meth:`CoordinateModel._prescale_plan`);
 - the detector (YOLOv8 + class-aware NMS) on every frame, in batches of
   ``PIECE``, and with ``TrackerConfig.use_appearance`` the appearance
-  embeddings of the first ``reid_slots`` detections of each frame (OSNet
-  or the HSV histogram); the keypoint model (HRNet-W48 + heatmap decode)
+  embeddings of the first ``reid_slots`` detections of each frame (OSNet,
+  on the card a captured CUDA graph a shape, or the HSV histogram); the
+  keypoint model (HRNet-W48 + heatmap decode)
   on the cadence frames, in batches of ``KP_BATCH``;
 - first-frame seeding by backward flow, then the temporal step
   (:mod:`eagle_tpu_torch.pipeline.temporal`) with the reference's
   on-demand keypoint rounds (at most 3): on the card as the JAX package
   runs it, one device program a ``chunk_frames`` chunk (a captured CUDA
-  graph of the step, :mod:`eagle_tpu_torch.pipeline.step_graph`), on the
-  CPU (and with ``gmc="features"``) a loop frame by frame;
+  graph of the step, :mod:`eagle_tpu_torch.pipeline.step_graph`, every
+  GMC included), on the CPU a loop frame by frame;
 - the float64 host assembly of the output dicts.
 
 Models: the built-in HRNet / YOLOv8 (seeded random weights, checkpoint
@@ -64,7 +65,7 @@ from eagle_tpu_torch.models.checkpoint import load_params
 from eagle_tpu_torch.models.convert import hrnet_from_torch, yolov8_from_torch
 from eagle_tpu_torch.models.hrnet import init_hrnet
 from eagle_tpu_torch.models.onnx_import import load_yolov8_onnx
-from eagle_tpu_torch.models.osnet import OSNet, embed_boxes, init_osnet, osnet_from_torch
+from eagle_tpu_torch.models.osnet import CapturedEmbed, OSNet, embed_boxes, init_osnet, osnet_from_torch
 from eagle_tpu_torch.models.yolov8 import CONFIG_VARIANTS, init_yolov8
 from eagle_tpu_torch.ops.embed import HIST_BINS, histogram_embeddings
 from eagle_tpu_torch.ops.heatmap import decode_heatmaps
@@ -100,6 +101,18 @@ PIECE = 16
 KP_BATCH = 8
 #: on-demand keypoint rounds (the reference's cap)
 ONDEMAND_ROUNDS = 3
+
+
+def _log_gmc(tally: np.ndarray, chunk: int) -> None:
+    """The features GMC's tally of a stage's frames ((N, 2): the fallback
+    taken, the fit's inlier corners, a row a frame) in the span log, a
+    ``chunk``-frame chunk at a time: the counts ``gmc:frames``,
+    ``gmc:fallback`` and ``gmc:inliers``."""
+    for lo in range(0, len(tally), chunk):
+        part = tally[lo : lo + chunk]
+        StageTimer.count("gmc:frames", len(part))
+        StageTimer.count("gmc:fallback", int(part[:, 0].sum()))
+        StageTimer.count("gmc:inliers", int(part[:, 1].sum()))
 
 
 class PrescaledClip(NamedTuple):
@@ -287,6 +300,8 @@ class CoordinateModel:
         self.ondemand_rounds = 0
         #: the captured temporal steps, one a configuration (:meth:`_step_graph`)
         self._step_graphs: dict = {}
+        #: the OSNet's captured calls on the card, one a shape (:meth:`_embed_osnet`)
+        self._embed_graphs: dict = {}
 
         # the default runners are bound as the JAX package binds them; every
         # path of get_coordinates branches on the _custom_* flags instead
@@ -532,16 +547,34 @@ class CoordinateModel:
         ``TrackerConfig.reid_slots`` slots (NMS compacts kept boxes score-
         descending; a custom ``detector_fn`` must front-compact its valid
         ones) are embedded; the others get zeros, which the appearance gate
-        treats as a miss."""
+        treats as a miss.  The crops embedded are the count ``reid:crops``
+        in the span log."""
         tcfg = self.config.tracker
         nb, d = boxes.shape[:2]
         k = min(tcfg.reid_slots, d)
+        StageTimer.count("reid:crops", nb * k)
         if self.reid_model is not None:
-            emb = embed_boxes(self.reid_model, x, boxes[:, :k])
+            emb = self._embed_osnet(x, boxes[:, :k])
         else:
             fi = torch.arange(nb, device=x.device).repeat_interleave(k)
             emb = histogram_embeddings(x, fi, boxes[:, :k].reshape(-1, 4)).reshape(nb, k, -1)
         return torch.cat([emb, emb.new_zeros(nb, d - k, emb.shape[-1])], dim=1)
+
+    def _embed_osnet(self, x: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """The OSNet's embeddings of ``boxes`` in ``x``: on the card a
+        :class:`~eagle_tpu_torch.models.osnet.CapturedEmbed` a shape,
+        captured at its first call (the span ``setup:capture``), whose
+        result the next call overwrites; elsewhere the eager call.
+        ``_embed_path = "eager"`` forces the eager call on the card: a
+        private switch for comparisons and tests."""
+        if x.device.type != "cuda" or getattr(self, "_embed_path", None) == "eager":
+            return embed_boxes(self.reid_model, x, boxes)
+        key = (tuple(x.shape), tuple(boxes.shape))
+        graph = self._embed_graphs.get(key)
+        if graph is None:
+            with StageTimer.span("setup:capture"):
+                graph = self._embed_graphs[key] = CapturedEmbed(self.reid_model, x, boxes)
+        return graph(x, boxes)
 
     def _seed_clips(self, spans, sampled, mem_kp, mem_valid, cfg, frames_of) -> None:
         """First-frame seeding (the reference's backward flow), in place on
@@ -571,14 +604,13 @@ class CoordinateModel:
 
     def _captured_scan(self, cfg: PipelineConfig) -> bool:
         """Whether the temporal stage runs as captured chunks
-        (:meth:`_scan_chunks`): on a CUDA device unless the configuration
-        takes ``gmc="features"`` (its corners and robust fit run in the
-        eager loop).  ``_temporal_path`` ("chunks" or "frames") overrides
-        the choice: a private switch for comparisons and tests."""
+        (:meth:`_scan_chunks`): on a CUDA device, whatever the GMC.
+        ``_temporal_path`` ("chunks" or "frames") overrides the choice: a
+        private switch for comparisons and tests."""
         path = getattr(self, "_temporal_path", None)
         if path is not None:
             return path == "chunks"
-        return self.device.type == "cuda" and cfg.tracker.gmc != "features"
+        return self.device.type == "cuda"
 
     def _step_graph(self, cfg: PipelineConfig, frame_hw, det_rows: int, det_width: int, reset_on_t0: bool):
         """The :class:`~eagle_tpu_torch.pipeline.step_graph.StepGraph` of
@@ -599,12 +631,15 @@ class CoordinateModel:
         on a non-cadence frame with no memo), the flagged frames get model
         keypoints (``keypoints_at``) and the loop resumes at the first of
         them.  Returns (``drain()``, which gives the outputs and the
-        detector rows on the host in one copy, the last carry)."""
+        detector rows on the host in one copy, and logs the features GMC's
+        tally as :meth:`_scan_chunks` does, the last carry)."""
         dev = self.device
         n = len(tt)
         keys_fn = self._ransac_draws(cfg)
         carries = [carry0] + [None] * n
         outs: list = [None] * n
+        features = cfg.tracker.gmc == "features"
+        gmc = [None] * n
         start = 0
         for _round in range(ONDEMAND_ROUNDS):
             with timer("temporal"):
@@ -629,7 +664,9 @@ class CoordinateModel:
                         t=tg,
                         det_embed=det[t, :, 7:] if cfg.tracker.use_appearance else None,
                     )
-                    carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, keys_fn)
+                    if features:
+                        gmc[t] = torch.empty(2, dtype=torch.int64, device=dev)
+                    carries[t + 1], outs[t] = temporal.temporal_step(carry, xs, cfg, keys_fn, gmc[t])
                     self.frames_stepped += 1
                 need = torch.stack([o.need_kp for o in outs])
                 with StageTimer.span("wait"):
@@ -641,11 +678,15 @@ class CoordinateModel:
             start = int(flagged[0])
 
         def drain():
-            # the outputs and the detector rows in one device-to-host copy
+            # the outputs, the detector rows and the features GMC's tally in
+            # one device-to-host copy
+            tally = [torch.stack(gmc)] if features else []
             with StageTimer.span("wait"):
                 *leaves, det_np = drain_together(
-                    *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
+                    *tally, *(torch.stack([o[i] for o in outs]) for i in range(len(outs[0]))), det[..., :7]
                 )
+            if features:
+                _log_gmc(leaves.pop(0), cfg.chunk_frames)
             return temporal.FrameOutputs(*leaves), det_np
 
         return drain, carries[n]
@@ -660,8 +701,11 @@ class CoordinateModel:
         round uploads the memos once and drains its outputs and the
         detector rows in one copy; when frames are flagged for on-demand
         keypoints, the next round resumes at the first flagged frame's
-        chunk.  Returns what :meth:`_scan_frames` returns (the last round's
-        drain, already made)."""
+        chunk.  With ``gmc="features"`` the drain also reads each step's
+        features-GMC tally (:class:`~eagle_tpu_torch.pipeline.step_graph.StepGraph`),
+        logged once the rounds end, a chunk at a time (:func:`_log_gmc`).
+        Returns what :meth:`_scan_frames` returns (the last round's drain,
+        already made)."""
         dev = self.device
         n = len(tt)
         chunk = cfg.chunk_frames
@@ -696,6 +740,8 @@ class CoordinateModel:
                 break
             self._ondemand(flagged, mem_kp, mem_valid, mem_attempted, keypoints_at, timer)
             start = int(flagged[0]) // chunk
+        if sg.gmc_stats is not None:
+            _log_gmc(packed[:, -2:], chunk)
         return (lambda: (out, det_np)), carries[n_chunks]
 
     def _ondemand(self, flagged, mem_kp, mem_valid, mem_attempted, keypoints_at, timer) -> None:
@@ -756,7 +802,9 @@ class CoordinateModel:
         batches of ``KP_BATCH`` with a short batch padded by repeating its
         last frame, as the JAX package pads them: the model sees one batch
         shape whatever the clip's length, so a frame's heatmaps do not
-        depend on how a stream cuts its blocks."""
+        depend on how a stream cuts its blocks.  The built-in model's
+        batches are all launched before their rows are read back in one
+        copy, so the card runs a batch while the host launches the next."""
         rows = []
         for i in range(0, len(idx), KP_BATCH):
             sel = list(idx[i : i + KP_BATCH])
@@ -765,10 +813,13 @@ class CoordinateModel:
             if self._custom_kp:
                 rows.append(self._custom_keypoints(frames[sel])[:real])
             else:
-                kp = self.run_keypoints(dev_frames[sel], geom, img_hw)[:real]
-                with StageTimer.span("wait"):
-                    rows.append(kp.cpu().numpy())
-        return np.concatenate(rows) if rows else np.zeros((0, 57, 4), np.float32)
+                rows.append(self.run_keypoints(dev_frames[sel], geom, img_hw)[:real])
+        if not rows:
+            return np.zeros((0, 57, 4), np.float32)
+        if self._custom_kp:
+            return np.concatenate(rows)
+        with StageTimer.span("wait"):
+            return torch.cat(rows).cpu().numpy()
 
     # ------------------------------------------------------------------
 

@@ -16,7 +16,14 @@ slots:
 - the carry, which the graph overwrites with the new carry as its last
   work, and the step index, which it advances;
 - the chunk's packed outputs (:func:`temporal.pack_outputs`' layout), a
-  row a step.
+  row a step; with ``gmc="features"`` two more columns a row, the step's
+  features-GMC tally (the fallback taken, the fit's inlier corners), which
+  the chunk's drain reads with the outputs.
+
+Every GMC runs inside the graph: the keypoint-flow fits, and the features
+GMC's grid corners of the previous frame slot, their flow (the kernel's
+K = 240 launch on the same static frame slots) and the robust fit, whose
+fallback to the keypoint-flow affine is a ``torch.where``.
 
 For each frame the host enqueues two device-to-device frame copies and a
 replay: nothing is read back inside a chunk.  On the CPU the same object
@@ -77,8 +84,6 @@ class StepGraph:
         reset_on_t0: bool,
         device,
     ):
-        if cfg.tracker.gmc == "features":
-            raise ValueError('gmc="features" runs the eager temporal loop; the captured step takes the keypoint-flow GMC')
         dev = torch.device(device)
         chunk = cfg.chunk_frames
         h, w = frame_hw
@@ -95,7 +100,9 @@ class StepGraph:
         self.index = torch.zeros((), dtype=torch.int64, device=dev)
         self.carry = _leaves(temporal.init_carry(cfg, dev))
         self.fresh = _leaves(temporal.init_carry(cfg, dev)) if reset_on_t0 else None
-        width = temporal.packed_width(cfg.tracker.max_tracks)
+        #: the step's features-GMC tally (:func:`temporal._features_gmc_warp`)
+        self.gmc_stats = torch.zeros(2, dtype=torch.int64, device=dev) if cfg.tracker.gmc == "features" else None
+        width = temporal.packed_width(cfg.tracker.max_tracks) + (2 if self.gmc_stats is not None else 0)
         self.out = torch.zeros(chunk, width, device=dev)
         self.graph = None
         #: seconds the warm-up and the capture took (None on the CPU): its
@@ -130,12 +137,15 @@ class StepGraph:
         if self.reset_on_t0:  # the JAX package's reset_on_t0 select
             first = xs.t == 0
             leaves = [torch.where(first, f, c) for f, c in zip(self.fresh, leaves)]
-        new, out = temporal.temporal_step_static(_carry_of(leaves), xs, self.cfg, self.seed)
+        new, out = temporal.temporal_step_static(_carry_of(leaves), xs, self.cfg, self.seed, self.gmc_stats)
         new = _leaves(new)
         for dst, src in zip(self.carry, new):
             if dst is not src:
                 dst.copy_(src)
-        self.out.index_copy_(0, i, pack_row(out))
+        row = pack_row(out)
+        if self.gmc_stats is not None:
+            row = torch.cat([row, self.gmc_stats.to(torch.float32).view(1, 2)], dim=-1)
+        self.out.index_copy_(0, i, row)
         self.index += 1
 
     def _capture(self) -> None:
@@ -176,8 +186,9 @@ class StepGraph:
         ``carry``: the per-frame inputs are device tensors with a leading
         axis of L (``det`` (L, D, width)), ``frame_pair(i)`` gives step i's
         (previous frame, frame).  Returns (the carry after the chunk, the
-        (L, F) packed outputs), copies on the device; nothing is read on
-        the host."""
+        (L, F) packed outputs, with ``gmc="features"`` the tally's two
+        columns after them), copies on the device; nothing is read on the
+        host."""
         n = len(t)
         if not 0 < n <= self.chunk:
             raise ValueError(f"a chunk holds 1 to {self.chunk} frames, got {n}")

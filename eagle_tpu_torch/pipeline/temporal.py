@@ -369,10 +369,11 @@ def temporal_step(
     xs: FrameInputs,
     cfg: PipelineConfig,
     keys_fn,
+    gmc_stats: torch.Tensor | None = None,
 ) -> tuple[TemporalCarry, FrameOutputs]:
     """One frame.  ``keys_fn(t)`` returns the frame's (iters, 57) RANSAC
     keys on the device (:func:`ransac_draws`; drawn only on frames that
-    solve a homography)."""
+    solve a homography).  ``gmc_stats``: see :func:`_features_gmc_warp`."""
     flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(
         carry, xs, cfg
     )
@@ -382,7 +383,8 @@ def temporal_step(
         H_new, inliers = carry.H, kp_valid
         h_success = torch.zeros((), dtype=torch.bool, device=kp_xy.device)
     return _post_homography(
-        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success
+        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success,
+        gmc_stats=gmc_stats,
     )
 
 
@@ -391,6 +393,7 @@ def temporal_step_static(
     xs: FrameInputs,
     cfg: PipelineConfig,
     seed: int,
+    gmc_stats: torch.Tensor | None = None,
 ) -> tuple[TemporalCarry, FrameOutputs]:
     """One frame with every branch on the device, the step a CUDA graph
     captures (:mod:`eagle_tpu_torch.pipeline.step_graph`): ``xs.t`` (0-d
@@ -401,14 +404,16 @@ def temporal_step_static(
     result is selected by ``do_h``: the skip branch keeps ``(carry.H,
     kp_valid, False)``, as the select that the JAX package's ``lax.cond``
     lowers to under ``vmap``.  The draw depends only on ``t``, so the carry
-    and outputs equal :func:`temporal_step`'s bit for bit."""
+    and outputs equal :func:`temporal_step`'s bit for bit.  ``gmc_stats``:
+    see :func:`_features_gmc_warp`."""
     flow_xy, flow_valid, kp_xy, kp_valid, need_kp, corr_valid, do_h = _pre_homography(carry, xs, cfg)
     keys = ransac_keys(seed, xs.t, cfg.homography.ransac_iters, 57)
     H_r, inl_r, ok_r = _run_ransac(kp_xy, corr_valid, keys, cfg)
     H_new = torch.where(do_h, H_r, carry.H)
     inliers = torch.where(do_h, inl_r, kp_valid)
     return _post_homography(
-        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, do_h & ok_r
+        carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, do_h & ok_r,
+        gmc_stats=gmc_stats,
     )
 
 
@@ -420,14 +425,19 @@ def _grid_corner_flow(prev_bgr, curr_bgr, cfg: PipelineConfig):
     return (pts, pvalid, *lk_flow(prev_bgr, curr_bgr, pts, pvalid, **_flow_args(cfg)))
 
 
-def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flow_valid, corners=None) -> torch.Tensor:
+def _features_gmc_warp(
+    carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flow_valid, corners=None, gmc_stats=None
+) -> torch.Tensor:
     """Full-frame sparse-feature GMC (``TrackerConfig.gmc="features"``,
     boxmot's sparse-optical-flow GMC): the grid corners of the previous
     frame, tracked to the current frame by the flow step (the CUDA kernel
     on the card, at K = 240; ``corners`` is that result when the caller ran
     it, :func:`_grid_corner_flow`), and the robust 4-DOF fit.  Below
     ``gmc_min_features`` inliers the keypoint-flow affine takes its place
-    (a ``torch.where``: no host sync).
+    (a ``torch.where``: no host sync).  ``gmc_stats``, a (2,) int64 device
+    tensor when given, is overwritten in place with the frame's (1 where
+    the fallback was taken else 0, the fit's inlier corners): the step's
+    tally, which a captured step keeps in a slot of its own.
 
     With a working geometry the frames are canvases: the fit runs in canvas
     pixels and maps back to original ones (``x_c = g x_o + p``: ``R_o =
@@ -443,11 +453,15 @@ def _features_gmc_warp(carry, xs: FrameInputs, cfg: PipelineConfig, flow_xy, flo
         t = torch.stack([shift[0] - g.pad_x, shift[1] - g.pad_y]) / g.gain
         warp = torch.cat([R, t[:, None]], 1)
     fallback = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=True)
-    return torch.where(n_inl >= cfg.tracker.gmc_min_features, warp, fallback)
+    enough = n_inl >= cfg.tracker.gmc_min_features
+    if gmc_stats is not None:
+        gmc_stats.copy_(torch.stack([(~enough).to(torch.int64), n_inl.to(torch.int64)]))
+    return torch.where(enough, warp, fallback)
 
 
 def _post_homography(
-    carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success, corners=None
+    carry, xs, cfg, flow_xy, flow_valid, kp_xy, kp_valid, need_kp, H_new, inliers, h_success, corners=None,
+    gmc_stats=None,
 ):
     H = torch.where(h_success, H_new, carry.H)
     H_ok = carry.H_ok | h_success
@@ -459,7 +473,7 @@ def _post_homography(
 
     gmc = None
     if cfg.tracker.gmc == "features":
-        gmc = _features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid, corners)
+        gmc = _features_gmc_warp(carry, xs, cfg, flow_xy, flow_valid, corners, gmc_stats)
     elif cfg.tracker.gmc != "off":
         gmc = estimate_gmc_warp(carry.kp_xy, flow_xy, flow_valid, affine=cfg.tracker.gmc == "affine")
     tracker, tout = botsort.step(

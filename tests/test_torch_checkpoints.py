@@ -188,3 +188,86 @@ def test_converters_name_a_missing_key():
     del sd["model.9.cv2.bn.running_var"]
     with pytest.raises(KeyError, match="ultralytics YOLOv8 state dict has no 'model.9.cv2.bn.running_var'"):
         tconvert.yolov8_from_torch(sd)
+
+
+def test_a_wrapped_torchreid_checkpoint_is_refused_by_both_packages(tmp_path):
+    """A torchreid training checkpoint wraps its weights as ``{"state_dict":
+    {"module.<key>": ...}, "epoch": ...}`` (a ``DataParallel`` model's keys).
+    Neither package unwraps it: the port's ``reid_checkpoint=`` and the JAX
+    package's ``osnet_from_torch`` both raise ``KeyError`` on it, so the
+    published ``osnet_x0_25_msmt17.pt`` must be a bare state dict, which
+    both load (the HRNet and YOLO loaders, unlike these, take the state
+    dict out of a saved module or an ultralytics ``"model"``)."""
+    import dataclasses
+
+    from eagle_tpu.models import osnet as josnet
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+
+    from .torch_graphs import OSNetTorch
+
+    sd = randomize_(OSNetTorch(variant="x0_25"), seed=5).state_dict()
+    bare, wrapped = str(tmp_path / "osnet.pt"), str(tmp_path / "osnet_wrapped.pt")
+    torch.save(sd, bare)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}, "epoch": 60}, wrapped)
+    tracker = dataclasses.replace(DEFAULT_CONFIG.tracker, use_appearance=True, embedder="osnet")
+    cfg = DEFAULT_CONFIG.replace(tracker=tracker)
+
+    def port(path):
+        return TModel(config=cfg, keypoint_fn=lambda b: None, detector_fn=_no_dets, reid_checkpoint=path,
+                      device="cpu").reid_model
+
+    with pytest.raises(KeyError):
+        port(wrapped)
+    with pytest.raises(KeyError):
+        josnet.osnet_from_torch(torch.load(wrapped, map_location="cpu", weights_only=True))
+    assert port(bare).fc.w.shape[1] == 512
+    assert josnet.osnet_from_torch(torch.load(bare, map_location="cpu", weights_only=True))["fc"]
+
+
+def test_kept_casts_and_folds_follow_the_weights():
+    """A network's bfloat16 weight casts and BatchNorm folds are made once
+    under ``no_grad`` (``models/layers.py::cached``) and made again when the
+    weights change: a state dict loaded in place, a buffer changed in
+    place, a parameter given new storage.  With autograd on nothing is kept.
+    Each output equals the fold and cast computed afresh."""
+    import torch.nn.functional as F
+
+    from eagle_tpu_torch.models.layers import BN_EPS, ConvBN
+
+    gen = torch.Generator().manual_seed(3)
+    m = ConvBN(4, 8, 3, act="relu")
+
+    def draw():
+        return {"w": torch.randn(8, 4, 3, 3, generator=gen), "bn.scale": 0.5 + torch.rand(8, generator=gen),
+                "bn.bias": torch.randn(8, generator=gen), "bn.mean": torch.randn(8, generator=gen),
+                "bn.var": 0.5 + torch.rand(8, generator=gen)}
+
+    def expected(x):
+        bn = m.bn
+        inv = torch.rsqrt(bn.var.float() + BN_EPS)
+        g = bn.scale.float()
+        scale = (g * inv).to(x.dtype)[:, None, None]
+        bias = (bn.bias.float() - bn.mean.float() * g * inv).to(x.dtype)[:, None, None]
+        return F.relu(F.conv2d(x, m.w.detach().to(x.dtype), padding=1) * scale + bias)
+
+    x = torch.randn(2, 4, 6, 6, generator=gen).to(torch.bfloat16)
+    m.load_state_dict(draw())
+    with torch.no_grad():
+        first = m(x)
+        kept = (m._cached[("w", torch.bfloat16)][2], m.bn._cached[("fold", torch.bfloat16)][2])
+        assert torch.equal(first, expected(x))
+        assert torch.equal(m(x), first)
+        assert m._cached[("w", torch.bfloat16)][2] is kept[0]
+        assert m.bn._cached[("fold", torch.bfloat16)][2] is kept[1]
+        m.load_state_dict(draw())
+        assert not torch.equal(m(x), first)
+        assert torch.equal(m(x), expected(x))
+        m.bn.var.mul_(2.0)
+        assert torch.equal(m(x), expected(x))
+        m.w.data = torch.randn(8, 4, 3, 3, generator=gen)
+        assert torch.equal(m(x), expected(x))
+        kept = m._cached[("w", torch.bfloat16)][2]
+    out = m(x)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), expected(x))
+    assert m._cached[("w", torch.bfloat16)][2] is kept

@@ -1044,15 +1044,15 @@ def test_eigh9_kernel_against_plain(dev):
         eigh.smallest_eigenvector_cuda(torch.zeros(2, 8, 8, device=dev))
 
 
-def _scene_model(path: str, n: int = 40, chunk: int = 16, **cfg_kw):
-    """A model on the port's synthetic scene (640x360, 8 players, a panning
+def _scene_model(path: str, n: int = 40, chunk: int = 16, hw=(360, 640), **cfg_kw):
+    """A model on the port's synthetic scene (``hw``, 8 players, a panning
     camera) with runners of its truth, ``chunk``-frame chunks, the temporal
     path forced to ``path`` ("chunks" or "frames")."""
     from eagle_tpu_torch.config import DEFAULT_CONFIG
     from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
     from eagle_tpu_torch.utils.synthetic import make_scene
 
-    scene = make_scene(num_frames=n, width=640, height=360, num_players=8, fps=8, seed=3, pan_speed=1.0)
+    scene = make_scene(num_frames=n, width=hw[1], height=hw[0], num_players=8, fps=8, seed=3, pan_speed=1.0)
     keypoints, detections = _scene_runners(scene, scene.frames)
     cfg = DEFAULT_CONFIG.replace(chunk_frames=chunk, **cfg_kw)
     model = CoordinateModel(config=cfg, keypoint_fn=keypoints, detector_fn=detections, device="cuda")
@@ -1087,6 +1087,84 @@ def test_graph_equals_eager_on_the_card(dev, appearance):
     assert runs["chunks_launches"] == [40, 120, 40, 80]
     assert sum(len(fr["Coordinates"].get("Player", {})) for fr in runs["chunks"].values()) > 4 * 40
     assert sum(fr["Boundaries"][0] is not None for fr in runs["chunks"].values()) > 30
+
+
+def test_graph_equals_eager_with_osnet_and_features_gmc(dev):
+    """The reference's tracker on the card: OSNet-x0.25 appearance (seeded
+    random weights) and the features GMC (grid corners, their flow at
+    K = 240, the robust fit), 48 frames of a 1920x1080 scene in 16-frame
+    chunks: the captured chunks' dict equals the eager loop's bit for bit
+    (the same kernels on the same inputs), both log the same features-GMC
+    tally, and each step launches the flow kernel once at K = 240 (the
+    corners)."""
+    import dataclasses
+    import warnings
+
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.utils.profiling import LOG
+
+    tracker = dataclasses.replace(DEFAULT_CONFIG.tracker, use_appearance=True, embedder="osnet", gmc="features")
+    runs, tally = {}, {}
+    for path in ("frames", "chunks"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the OSNet's random init
+            model, frames = _scene_model(path, n=48, hw=(1080, 1920), tracker=tracker)
+        assert model._captured_scan(model.config) == (path == "chunks")
+        before = lc.get("lk_flow/k=240")
+        mark = LOG.appended
+        with lc.counting():
+            runs[path] = model.get_coordinates(frames, 8, num_homography=2, num_keypoint_detection=2)
+        torch.cuda.synchronize()
+        runs[path + "_k240"] = (lc.get("lk_flow/k=240") - before, model.frames_stepped)
+        recs = LOG.records()[-(LOG.appended - mark):]
+        tally[path] = [(r.name, r.value) for r in recs if r.name.startswith("gmc:")]
+    assert runs["chunks"] == runs["frames"]
+    assert tally["chunks"] == tally["frames"]
+    assert [v for name, v in tally["chunks"] if name == "gmc:frames"] == [16, 16, 16]
+    # one corner flow a step, re-steps of on-demand rounds included
+    assert runs["chunks_k240"][0] == runs["chunks_k240"][1] >= 48
+    assert runs["frames_k240"][0] == runs["frames_k240"][1] >= 48
+    assert sum(len(fr["Coordinates"].get("Player", {})) for fr in runs["chunks"].values()) > 4 * 48
+
+
+def test_captured_osnet_equals_the_eager_call(dev):
+    """The OSNet's captured call (seeded random x0.25 in bfloat16, 64 boxes
+    on each of 4 working-canvas frames) gives the eager call's embeddings
+    bit for bit, on its capture's inputs and on new ones copied into its
+    slots; ``CoordinateModel.embed`` on the card captures one graph a
+    shape and gives what its private eager switch gives."""
+    import dataclasses
+    import warnings
+
+    from eagle_tpu_torch.config import DEFAULT_CONFIG
+    from eagle_tpu_torch.models.osnet import CapturedEmbed, embed_boxes, init_osnet
+    from eagle_tpu_torch.pipeline.coordinate_model import CoordinateModel
+
+    model = init_osnet(7, "x0_25", use_bf16=True).to(dev).eval()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def case():
+        x = torch.randint(0, 256, (4, 544, 960, 3), generator=gen, dtype=torch.uint8).to(dev)
+        lo = torch.rand(4, 64, 2, generator=gen) * torch.tensor([800.0, 400.0])
+        size = 8 + torch.rand(4, 64, 2, generator=gen) * torch.tensor([150.0, 140.0])
+        return x, torch.cat([lo, lo + size], -1).to(dev)
+
+    with torch.no_grad():
+        first, second = case(), case()
+        graph = CapturedEmbed(model, *first)
+        for x, b in (first, second):
+            assert torch.equal(graph(x, b).clone(), embed_boxes(model, x, b))
+
+    tracker = dataclasses.replace(DEFAULT_CONFIG.tracker, use_appearance=True, embedder="osnet")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the OSNet's random init
+        cm = CoordinateModel(config=DEFAULT_CONFIG.replace(tracker=tracker), device="cuda")
+    x, b = second
+    rows = torch.cat([b, b[:, :36]], 1)  # 100 rows, the first 64 embedded
+    got = cm.embed(x, rows)
+    assert len(cm._embed_graphs) == 1
+    cm._embed_path = "eager"
+    assert torch.equal(got, cm.embed(x, rows))
 
 
 def test_step_graph_makes_no_host_sync(dev):

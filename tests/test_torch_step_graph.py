@@ -97,18 +97,27 @@ def scene():
     return make_scene(num_frames=9, width=640, height=360, num_players=6, fps=10, seed=4, pan_speed=PAN)
 
 
-def test_static_step_equals_the_eager_step_and_jax(scene):
+@pytest.mark.parametrize("gmc", ["affine", "features"])
+def test_static_step_equals_the_eager_step_and_jax(scene, gmc):
     """Nine steps: t = 0, keypoint frames every 4, homography frames every
     7; frames 6 and 7 are featureless, so the flow collapses at frame 7 (no
     model keypoints: an on-demand flag) and the homography frame 7 is
-    starved (a retry, solved at frame 8 from its model keypoints)."""
+    starved (a retry, solved at frame 8 from its model keypoints).  With
+    the default keypoint-flow GMC and with the features GMC (grid corners,
+    their flow at K = 240 and the robust fit, whose tally the static and
+    the eager step write alike: the fallback on frames 6-8 only, whose
+    previous or current frame is featureless)."""
     frames = scene.frames.copy()
     frames[list(DARK)] = 127
     kp0, valid0 = oracle_keypoint_fn(scene)(scene.frames[:1])
+    jcfg = JCFG.replace(tracker=dataclasses.replace(JCFG.tracker, gmc=gmc))
+    tcfg = TCFG.replace(tracker=dataclasses.replace(TCFG.tracker, gmc=gmc))
     jstep = jax.jit(jt.temporal_step, static_argnames=("cfg",))
-    jc, ec, sc = jt.init_carry(JCFG), tt.init_carry(TCFG, "cpu"), tt.init_carry(TCFG, "cpu")
-    gum = tt.ransac_draws(0, TCFG, "cpu")
+    jc, ec, sc = jt.init_carry(jcfg), tt.init_carry(tcfg, "cpu"), tt.init_carry(tcfg, "cpu")
+    gum = tt.ransac_draws(0, tcfg, "cpu")
     seen = {"need_kp": 0, "retry": 0, "h_ok": 0}
+    tally = {"eager": torch.zeros(2, dtype=torch.int64), "static": torch.zeros(2, dtype=torch.int64)}
+    fallbacks = []
     for f in range(len(frames)):
         is_kp, is_h = f % KP_EVERY == 0, f % H_EVERY == 0
         kp = kp0[0].copy()
@@ -124,10 +133,13 @@ def test_static_step_equals_the_eager_step_and_jax(scene):
             **{a: jnp.asarray(x) for a, x in common.items()},
         )
         base = dict(frame_bgr=t(frames[f]), prev_frame_bgr=t(prev), det_cls=t(k).long(), **{a: t(x) for a, x in common.items()})
-        jc, jo = jstep(jc, jx, cfg=JCFG, base_key=jax.random.key(0))
-        ec, eo = tt.temporal_step(ec, tt.FrameInputs(is_kp_frame=is_kp, is_h_frame=is_h, t=f, **base), TCFG, gum)
+        jc, jo = jstep(jc, jx, cfg=jcfg, base_key=jax.random.key(0))
+        ex = tt.FrameInputs(is_kp_frame=is_kp, is_h_frame=is_h, t=f, **base)
+        ec, eo = tt.temporal_step(ec, ex, tcfg, gum, tally["eager"])
         sx = tt.FrameInputs(is_kp_frame=torch.tensor(is_kp), is_h_frame=torch.tensor(is_h), t=torch.tensor(f), **base)
-        sc, so = tt.temporal_step_static(sc, sx, TCFG, 0)
+        sc, so = tt.temporal_step_static(sc, sx, tcfg, 0, tally["static"])
+        np.testing.assert_array_equal(n(tally["static"]), n(tally["eager"]), err_msg=f"frame {f} tally")
+        fallbacks.append(int(tally["static"][0]))
         for name, a, b_ in zip(eo._fields, eo, so):
             np.testing.assert_array_equal(n(b_), n(a), err_msg=f"frame {f} {name}: static != eager")
         for a, b_ in zip([*ec[:-1], *ec.tracker], [*sc[:-1], *sc.tracker]):
@@ -148,6 +160,9 @@ def test_static_step_equals_the_eager_step_and_jax(scene):
         seen["h_ok"] += bool(so.H_ok)
     assert seen["need_kp"] and seen["retry"] and seen["h_ok"], seen
     assert n(so.track_valid).sum() >= 5
+    # the tally is written by the features GMC only
+    want = [int(f in DARK or f - 1 in DARK) for f in range(len(frames))] if gmc == "features" else [0] * len(frames)
+    assert fallbacks == want
 
 
 # ---------------------------------------------------------------------------
@@ -202,24 +217,47 @@ def test_step_graph_runs_on_demand_rounds_as_the_eager_loop_and_jax():
     assert len(got[9]["Keypoints"]) >= 4
 
 
-@pytest.mark.parametrize("appearance", [False, True])
-def test_step_graph_streams_as_the_eager_loop(appearance):
+def _gmc_counts() -> list:
+    """(name, request, value) of the ``gmc:*`` counts of the span log's last
+    ``stream_coordinates`` call."""
+    from eagle_tpu_torch.utils.profiling import LOG
+
+    recs = LOG.records()
+    call = [r.id for r in recs if r.kind == "call" and r.name == "stream_coordinates"][-1]
+    return [(r.name, r.request, r.value) for r in recs if r.call == call and r.name.startswith("gmc:")]
+
+
+@pytest.mark.parametrize(
+    "appearance,gmc", [(False, "affine"), (True, "affine"), (True, "features")], ids=["False", "True", "features"]
+)
+def test_step_graph_streams_as_the_eager_loop(appearance, gmc):
     """Two blocks (segments of 5 and 7 frames cut into whole 4-frame chunks:
     blocks of 4 and 8): the carry and the previous frame pass between the
     blocks; equal to the eager stream and to the one-shot run.  Also with
     the tracker's appearance association (the histogram embedder's 64-d
-    rows ride the detection slots)."""
+    rows ride the detection slots), and with it the features GMC, whose
+    tally both paths log alike: the counts ``gmc:frames``, ``gmc:fallback``
+    and ``gmc:inliers`` a 4-frame chunk, under the block's request."""
     base = make_scene(num_frames=12, width=640, height=360, num_players=4, fps=8, seed=2)
     kw = dict(num_keypoint_detection=3, num_homography=2)
-    tracker = dataclasses.replace(TCFG.tracker, use_appearance=True, embedder="histogram", embed_dim=64)
+    tracker = dataclasses.replace(TCFG.tracker, use_appearance=True, embedder="histogram", embed_dim=64, gmc=gmc)
     cfg = dict(config=TCFG.replace(tracker=tracker)) if appearance else {}
-    out = {}
+    out, counts = {}, {}
     for path in ("chunks", "frames"):
         m = chunk_model(path, keypoint_fn=oracle_keypoint_fn(base), detector_fn=oracle_detector_fn(base), **cfg)
         blocks = list(m.stream_coordinates([base.frames[:5], base.frames[5:]], 8, prefetch=False, **kw))
         assert [sorted(b) for b in blocks] == [list(range(4)), list(range(4, 12))]
         out[path] = {k: v for b in blocks for k, v in b.items()}
+        counts[path] = _gmc_counts()
     assert out["chunks"] == out["frames"]
+    assert counts["chunks"] == counts["frames"]
+    if gmc == "features":
+        frames = [(req, v) for name, req, v in counts["chunks"] if name == "gmc:frames"]
+        assert frames == [(0, 4), (4, 4), (4, 4)]
+        inliers = [v for name, _, v in counts["chunks"] if name == "gmc:inliers"]
+        assert min(inliers) >= 4 * TCFG.tracker.gmc_min_features  # a textured still scene: no fallback
+    else:
+        assert counts["chunks"] == []
     one_shot = chunk_model("chunks", keypoint_fn=oracle_keypoint_fn(base), detector_fn=oracle_detector_fn(base), **cfg)
     assert one_shot.get_coordinates(base.frames, 8, **kw) == out["chunks"]
 
@@ -260,15 +298,21 @@ def test_step_graph_resets_at_each_flattened_clip():
     assert all(len(fr["Coordinates"].get("Player", {})) == 1 for r in got for fr in r.values())
 
 
-def test_the_card_takes_the_step_graph_unless_features_gmc():
+def test_the_card_takes_the_step_graph_with_features_gmc_too():
+    """On the card the temporal stage runs as captured chunks whatever the
+    GMC, the features GMC included (its step graph is made, not refused);
+    ``_temporal_path`` forces the eager loop."""
+    from eagle_tpu_torch.pipeline.step_graph import StepGraph
+
     m = TModel(keypoint_fn=lambda b: None, detector_fn=_no_dets, device="cpu")
     assert not m._captured_scan(m.config)
-    m.device = torch.device("cuda")  # the choice only; nothing runs
-    assert m._captured_scan(m.config)
     feats = m.config.replace(tracker=dataclasses.replace(m.config.tracker, gmc="features"))
-    assert not m._captured_scan(feats)
+    sg = StepGraph(feats, (64, 96), 4, 7, 0, False, "cpu")
+    assert sg.gmc_stats is not None and sg.out.shape[1] == tt.packed_width(feats.tracker.max_tracks) + 2
+    m.device = torch.device("cuda")  # the choice only; nothing runs
+    assert m._captured_scan(m.config) and m._captured_scan(feats)
     m._temporal_path = "frames"
-    assert not m._captured_scan(m.config)
+    assert not m._captured_scan(m.config) and not m._captured_scan(feats)
 
 
 def test_launch_counts_registry():
